@@ -1,0 +1,277 @@
+"""RANSAC homography estimation and iterative least-squares refinement
+(FindHomography, matching.cu:1000-1087; ImproveHomography,
+geomFuncs.cpp:6-72), on device tensors end to end.
+
+``find_homography`` draws 4-point samples from a ``torch.Generator``,
+solves Hartley-normalized 8x8 DLT systems in a batch, scores every
+candidate by MSAC (ties in the inlier count go to the sharper consensus),
+and refits the winner on its own inlier set (LO-RANSAC, 4 passes).
+``improve_homography`` runs iteratively reweighted least squares and picks,
+each iteration, among four supports by MSAC at 0.75*thresh. All refits go
+through the thin-QR solve in ``ops.linalg``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..config import HomographyParams
+from ..sift_data import SiftData
+from .detect import rank_select
+from .linalg import solve_batched, weighted_lstsq8
+
+# Candidate homographies scored per chunk: bounds the (chunk, max_pts)
+# reprojection temporaries to a few hundred MB at max_pts = 32768.
+_SCORE_CHUNK = 1024
+
+
+def _distinct_quads(u: torch.Tensor, num_valid: torch.Tensor) -> torch.Tensor:
+    """(L, 4) distinct indices in [0, max(num_valid, 8)) from (L, 4) uniform
+    draws in [0, 1): colliding draws are bumped forward (mod n) in 4 passes,
+    which makes every quad distinct for n >= 8 (the caller requires
+    num_valid >= 8, matching.cu:1040)."""
+    n = torch.clamp(num_valid.to(torch.int64), min=8)
+    idx = torch.remainder(torch.floor(u * n).to(torch.int64), n)
+    a, b, c, d = idx.unbind(dim=1)
+    for _ in range(4):
+        b = torch.remainder(b + (b == a), n)
+        c = torch.remainder(c + (c == a), n)
+        c = torch.remainder(c + (c == b), n)
+        d = torch.remainder(d + (d == a), n)
+        d = torch.remainder(d + (d == b), n)
+        d = torch.remainder(d + (d == c), n)
+    return torch.stack([a, b, c, d], dim=1)
+
+
+def _sample_distinct_quads(generator: torch.Generator | None, num_loops: int,
+                           num_valid: torch.Tensor) -> torch.Tensor:
+    """(num_loops, 4) distinct indices in [0, num_valid), on the device of
+    ``num_valid``. Replaces the host rand() rejection loops
+    (matching.cu:1041-1053)."""
+    gdev = generator.device if generator is not None else torch.device("cpu")
+    u = torch.rand((num_loops, 4), generator=generator, device=gdev)
+    return _distinct_quads(u.to(num_valid.device), num_valid)
+
+
+def _dlt_batch(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+    """Batched 8-parameter DLT (ComputeHomographies, matching.cu:907-948):
+    src, dst (L, 4, 2) -> (L, 8) rows [h00..h21], h22 = 1."""
+    x1, y1 = src[..., 0], src[..., 1]
+    x2, y2 = dst[..., 0], dst[..., 1]
+    zeros = torch.zeros_like(x1)
+    ones = torch.ones_like(x1)
+    rows_a = torch.stack([x1, y1, ones, zeros, zeros, zeros, -x2 * x1, -x2 * y1], dim=-1)
+    rows_b = torch.stack([zeros, zeros, zeros, x1, y1, ones, -y2 * x1, -y2 * y1], dim=-1)
+    a = torch.cat([rows_a, rows_b], dim=1)                   # (L, 8, 8)
+    b = torch.cat([x2, y2], dim=1)                           # (L, 8)
+    return solve_batched(a, b)
+
+
+def _inlier_counts(h8, x1, y1, x2, y2, valid, thresh: float):
+    """Inlier count (the reference's division-free test, matching.cu:969-981)
+    and MSAC score ``sum(min(err^2, thresh^2))`` per candidate row of h8."""
+    counts, msacs = [], []
+    t2 = thresh * thresh
+    for c0 in range(0, h8.shape[0], _SCORE_CHUNK):
+        h = h8[c0:c0 + _SCORE_CHUNK]
+        nomx = h[:, 0:1] * x1 + h[:, 1:2] * y1 + h[:, 2:3]
+        nomy = h[:, 3:4] * x1 + h[:, 4:5] * y1 + h[:, 5:6]
+        deno = h[:, 6:7] * x1 + h[:, 7:8] * y1 + 1.0
+        err2s = (x2 * deno - nomx) ** 2 + (y2 * deno - nomy) ** 2
+        ok = (err2s < t2 * deno * deno) & valid[None, :]
+        deno2 = torch.clamp(deno * deno, min=1e-12)
+        err2 = torch.clamp(err2s / deno2, max=t2)
+        msacs.append(torch.where(valid[None, :], err2, 0.0).sum(dim=1))
+        counts.append(ok.sum(dim=1))
+    return torch.cat(counts), torch.cat(msacs)
+
+
+def _normalization(x, y, mask):
+    """Hartley similarity: zero mean, mean distance sqrt(2)."""
+    w = mask.to(torch.float32)
+    n = torch.clamp(w.sum(), min=1.0)
+    cx = (x * w).sum() / n
+    cy = (y * w).sum() / n
+    d = torch.sqrt((x - cx) ** 2 + (y - cy) ** 2)
+    mean_d = (d * w).sum() / n
+    s = 1.4142135623730951 / torch.clamp(mean_d, min=1e-6)
+    return cx, cy, s
+
+
+def _similarity(s, cx, cy, inverse: bool = False) -> torch.Tensor:
+    """T = [[s, 0, -s*cx], [0, s, -s*cy], [0, 0, 1]] or its inverse."""
+    one = torch.ones_like(s)
+    zero = torch.zeros_like(s)
+    if inverse:
+        rows = [[1 / s, zero, cx], [zero, 1 / s, cy], [zero, zero, one]]
+    else:
+        rows = [[s, zero, -s * cx], [zero, s, -s * cy], [zero, zero, one]]
+    return torch.stack([torch.stack(r) for r in rows])
+
+
+def _dlt_rows(nx1, ny1, nx2, ny2):
+    ones = torch.ones_like(nx1)
+    zeros = torch.zeros_like(nx1)
+    ya = torch.stack([nx1, ny1, ones, zeros, zeros, zeros, -nx1 * nx2, -ny1 * nx2], 1)
+    yb = torch.stack([zeros, zeros, zeros, nx1, ny1, ones, -nx1 * ny2, -ny1 * ny2], 1)
+    return ya, yb
+
+
+def _denormalize(a8, t2inv, t1):
+    """(B, 8) normalized solutions -> (B, 3, 3) pixel homographies, h22 = 1."""
+    hn = torch.cat([a8, torch.ones_like(a8[:, :1])], dim=1).reshape(-1, 3, 3)
+    hr = t2inv @ hn @ t1
+    h22 = hr[:, 2, 2]
+    h22 = torch.where(h22.abs() < 1e-12, 1e-12, h22)
+    return hr / h22[:, None, None]
+
+
+def find_homography(
+    data: SiftData,
+    generator: torch.Generator | None = None,
+    num_loops: int | None = None,
+    min_score: float | None = None,
+    max_ambiguity: float | None = None,
+    thresh: float | None = None,
+    params: HomographyParams | None = None,
+):
+    """RANSAC over matched pairs. Returns (homography (3, 3), num_matches ()).
+
+    Sample pairs are filtered by score/ambiguity (matching.cu:1034-1037);
+    inliers are counted over all matched points. With fewer than 8 filtered
+    pairs the identity comes back with zero matches. ``params`` supplies the
+    defaults of the scalar knobs; explicit keyword arguments win.
+    """
+    p = params if params is not None else HomographyParams()
+    num_loops = p.num_loops if num_loops is None else num_loops
+    min_score = p.min_score if min_score is None else min_score
+    max_ambiguity = p.max_ambiguity if max_ambiguity is None else max_ambiguity
+    thresh = p.thresh if thresh is None else thresh
+    dev = data.device
+    x1, y1, x2, y2 = data.xpos, data.ypos, data.match_xpos, data.match_ypos
+    valid_pts = data.valid_mask()
+    good = valid_pts & (data.score > min_score) & (data.ambiguity < max_ambiguity)
+    good_idx, num_good, _ = rank_select(good, data.max_pts)
+
+    quads = _sample_distinct_quads(generator, num_loops, num_good)   # (L, 4)
+    pick = good_idx[quads]
+
+    cx1, cy1, s1 = _normalization(x1, y1, good)
+    cx2, cy2, s2 = _normalization(x2, y2, good)
+    src = torch.stack([s1 * (x1[pick] - cx1), s1 * (y1[pick] - cy1)], dim=-1)
+    dst = torch.stack([s2 * (x2[pick] - cx2), s2 * (y2[pick] - cy2)], dim=-1)
+    hn8 = _dlt_batch(src, dst)
+    hn8 = torch.where(torch.isfinite(hn8), hn8, 0.0)
+    t1 = _similarity(s1, cx1, cy1)
+    t2inv = _similarity(s2, cx2, cy2, inverse=True)
+    h8 = _denormalize(hn8, t2inv, t1).reshape(-1, 9)[:, :8]
+    h8 = torch.where(torch.isfinite(h8), h8, 0.0)
+
+    counts, msac = _inlier_counts(h8, x1[None, :], y1[None, :], x2[None, :],
+                                  y2[None, :], valid_pts, thresh)
+    best = torch.argmin(msac)
+    best_h8 = h8[best]
+    num_matches = counts[best]
+
+    # LO-RANSAC: refit the winner on all valid matches within `thresh` of
+    # it, four times (documented deviation from the raw 4-point winner the
+    # reference returns, ROADMAP.md).
+    ya, yb = _dlt_rows(s1 * (x1 - cx1), s1 * (y1 - cy1),
+                       s2 * (x2 - cx2), s2 * (y2 - cy2))
+    refit = best_h8
+    for _ in range(4):
+        h = torch.cat([refit, torch.ones_like(refit[:1])]).reshape(3, 3)
+        den = h[2, 0] * x1 + h[2, 1] * y1 + 1.0
+        den = torch.where(den.abs() < 1e-12, 1e-12, den)
+        px = (h[0, 0] * x1 + h[0, 1] * y1 + h[0, 2]) / den
+        py = (h[1, 0] * x1 + h[1, 1] * y1 + h[1, 2]) / den
+        err2 = (px - x2) ** 2 + (py - y2) ** 2
+        w = (valid_pts & (err2 < thresh * thresh)).to(torch.float32)
+        a, ok = weighted_lstsq8(ya, yb, w[None], s2 * (x2 - cx2), s2 * (y2 - cy2))
+        hr8 = _denormalize(a, t2inv, t1).reshape(9)[:8]
+        ok = ok[0] & torch.isfinite(hr8).all()
+        refit = torch.where(ok, hr8, refit)
+    refit_counts, refit_msac = _inlier_counts(
+        refit[None], x1[None, :], y1[None, :], x2[None, :], y2[None, :],
+        valid_pts, thresh)
+    better = refit_msac[0] <= msac[best]
+    best_h8 = torch.where(better, refit, best_h8)
+    num_matches = torch.where(better, refit_counts[0], num_matches)
+
+    enough = num_good >= 8
+    identity = torch.tensor([1.0, 0, 0, 0, 1.0, 0, 0, 0], dtype=torch.float32, device=dev)
+    best_h8 = torch.where(enough, best_h8, identity)
+    num_matches = torch.where(enough, num_matches, 0).to(torch.int32)
+    homography = torch.cat([best_h8, torch.ones_like(best_h8[:1])]).reshape(3, 3)
+    return homography, num_matches
+
+
+def improve_homography(
+    data: SiftData,
+    homography: torch.Tensor,
+    num_loops: int = 5,
+    min_score: float = 0.0,
+    max_ambiguity: float = 0.95,
+    thresh: float = 3.0,
+):
+    """Iteratively reweighted DLT refinement (ImproveHomography,
+    geomFuncs.cpp:6-72) in Hartley-normalized coordinates.
+
+    Each iteration solves three weighted refits -- the gated
+    (score/ambiguity-filtered) inliers at ``thresh``, all valid inliers at
+    ``thresh``, and all valid pairs within 2*thresh -- and keeps, among
+    them and the current homography, the best MSAC score at 0.75*thresh.
+    A refit with fewer than 4 weighted pairs is skipped.
+
+    Returns (homography (3, 3), num_fit (), match_error (max_pts,)).
+    """
+    limit = thresh * thresh
+    valid = data.valid_mask()
+    gated = valid & (data.score >= min_score) & (data.ambiguity <= max_ambiguity)
+    x1, y1 = data.xpos, data.ypos
+    x2, y2 = data.match_xpos, data.match_ypos
+
+    cx1, cy1, s1 = _normalization(x1, y1, gated)
+    cx2, cy2, s2 = _normalization(x2, y2, gated)
+    nx2, ny2 = s2 * (x2 - cx2), s2 * (y2 - cy2)
+    ya, yb = _dlt_rows(s1 * (x1 - cx1), s1 * (y1 - cy1), nx2, ny2)
+    t1 = _similarity(s1, cx1, cy1)
+    t2inv = _similarity(s2, cx2, cy2, inverse=True)
+
+    def errors(h):
+        """Squared reprojection errors of (..., 3, 3) homographies."""
+        h = h[..., None]
+        den = h[..., 2, 0, :] * x1 + h[..., 2, 1, :] * y1 + h[..., 2, 2, :]
+        den = torch.where(den.abs() < 1e-12, 1e-12, den)
+        px = (h[..., 0, 0, :] * x1 + h[..., 0, 1, :] * y1 + h[..., 0, 2, :]) / den
+        py = (h[..., 1, 0, :] * x1 + h[..., 1, 1, :] * y1 + h[..., 1, 2, :]) / den
+        return (px - x2) ** 2 + (py - y2) ** 2
+
+    sub = 0.5625 * limit
+
+    def msac(e):
+        return torch.where(valid, torch.clamp(e, max=sub), 0.0).sum(dim=-1)
+
+    h = homography / homography[2, 2]
+    for _ in range(num_loops):
+        err = errors(h)
+        w = torch.stack([
+            (gated & (err < limit)),
+            (valid & (err < limit)),
+            (valid & (err < 4.0 * limit)),
+        ]).to(torch.float32)
+        a, ok = weighted_lstsq8(ya, yb, w, nx2, ny2)
+        cand = _denormalize(a, t2inv, t1)                    # (3, 3, 3)
+        ok = ok & torch.isfinite(cand).flatten(1).all(dim=1)
+        m = torch.where(ok, msac(errors(cand)), torch.inf)   # gated, glob, wide
+        m_cur = msac(err)
+        best = torch.minimum(m_cur, m.min())
+        # Ties keep the gated update first, then the global, then the wide.
+        h = torch.where(m[0] == best, cand[0],
+                        torch.where(m[1] == best, cand[1],
+                                    torch.where(m[2] == best, cand[2], h)))
+
+    err = errors(h)
+    match_error = torch.sqrt(torch.where(valid, err, 0.0))
+    num_fit = (valid & (err < limit)).sum().to(torch.int32)
+    return h, num_fit, match_error

@@ -1,0 +1,190 @@
+"""End-to-end SIFT extraction (ExtractSift, cudaSiftH.cu:72-232).
+
+One structure on every device: per octave, smallest first,
+
+1. the DoG kernel (K1): 8 blurs, 7 DoG planes, extremum + edge mask;
+2. raster-order compaction of the mask into the octave's candidate capacity;
+3. the refine kernel (K2): subpixel refinement of the live candidates;
+4. the fused orientation + descriptor kernel (K3), on refine's validity
+   mask directly (no compaction before it);
+5. primaries then second-peak duplicates, scaled to image coordinates.
+
+The octaves' slots are then merged by one stable compaction into
+``max_pts``, with explicit ``overflow`` accounting. On CUDA tensors each
+of K1-K3 launches its hand-written kernel; on CPU tensors it runs the
+kernel's plain PyTorch version. No stage reads a count back to the host.
+
+Point order matches the reference's octave recursion (cudaSiftH.cu:146-167):
+octaves smallest first, within an octave primary orientations before
+second-peak duplicates, each block in raster order. ``num_pts`` counts
+every extracted point, including the full-resolution octave's duplicates
+that the reference's counter leaves out (cudaSiftH.cu:115).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .config import SiftParams
+from .ops import convolve
+from .ops.cuda.dog import dog_and_mask
+from .ops.cuda.orient_desc import orient_and_describe
+from .ops.cuda.refine import refine_candidates
+from .ops.detect import compact_mask, rank_select
+from .sift_data import SiftData
+
+
+def _check_params(params: SiftParams, device: torch.device) -> None:
+    """Raise NotImplementedError for settings whose kernels the port lacks."""
+    if not params.use_fused:
+        raise NotImplementedError(
+            "use_fused=False needs the split orientation/descriptor kernels "
+            "(ROADMAP.md, Queue 2: K6/K7), which are not ported yet")
+    if params.use_pallas_compact:
+        raise NotImplementedError(
+            "use_pallas_compact=True needs the compaction kernel "
+            "(ROADMAP.md, Queue 2: K8), which is not ported yet")
+    if params.fast_gradients or params.grad_mode == "fast":
+        raise NotImplementedError(
+            "grad_mode='fast' is not ported yet (ROADMAP.md, Queue 2: K3 'fast')")
+    if device.type == "cuda" and not params.use_pallas:
+        raise NotImplementedError(
+            "use_pallas=False on a CUDA tensor: the port's GPU path is its kernels")
+
+
+def _compact(fields: dict, valid: torch.Tensor, capacity: int):
+    """Stable-compact field tensors by a validity mask into ``capacity``
+    slots (deterministic replacement for atomicInc appends,
+    cudaSiftD.cu:1420). Returns (fields, count, total)."""
+    src, count, total = rank_select(valid, capacity)
+    live = torch.arange(capacity, device=valid.device) < count
+    out = {}
+    for k, v in fields.items():
+        g = v[src]
+        mask = live.reshape((capacity,) + (1,) * (v.dim() - 1))
+        out[k] = torch.where(mask, g, torch.zeros((), dtype=v.dtype, device=v.device))
+    return out, count, total
+
+
+def _extract_octave(base: torch.Tensor, kernels: np.ndarray, params: SiftParams,
+                    subsampling: float, capacity: int):
+    """One octave (ExtractSiftOctave, cudaSiftH.cu:169-232). Returns
+    (fields, slot validity, dropped candidates) with positions in image
+    units (cudaSiftD.cu:410-414)."""
+    dog, mask = dog_and_mask(base, kernels, params.thresh, params.edge_limit)
+    flat_idx, count, total = compact_mask(mask, capacity, with_total=True)
+    oct_overflow = total - count
+    cands = refine_candidates(dog, flat_idx, count, params.edge_limit,
+                              params.lowest_scale_effective / subsampling)
+    scale_safe = torch.where(cands.valid, cands.scale, 1.0)
+    desc1, desc2, primary, secondary, has_second = orient_and_describe(
+        base, cands.xpos, cands.ypos, scale_safe, cands.valid, params.grad_mode)
+
+    def dup(a, b=None):
+        return torch.cat([a, a if b is None else b])
+
+    fields = {
+        "xpos": dup(cands.xpos) * subsampling,
+        "ypos": dup(cands.ypos) * subsampling,
+        "scale": dup(cands.scale) * subsampling,
+        "sharpness": dup(cands.sharpness),
+        "edgeness": dup(cands.edgeness),
+        "orientation": dup(primary, secondary),
+        "data": torch.cat([desc1, desc2]),
+    }
+    slot_valid = torch.cat([cands.valid, cands.valid & has_second])
+    fields["subsampling"] = torch.where(slot_valid, subsampling, 0.0)
+    return fields, slot_valid, oct_overflow
+
+
+def _extract(image: torch.Tensor, params: SiftParams) -> SiftData:
+    dev = image.device
+    img = image.to(torch.float32)
+    if params.scale_up:
+        img = convolve.scale_up(img)
+    low = convolve.low_pass(img, max(params.init_blur, 0.001))
+
+    kernels = params.laplace_kernels
+    bases = [low]
+    for _ in range(params.num_octaves - 1):
+        bases.append(convolve.scale_down(bases[-1]))
+
+    all_fields, all_valid = [], []
+    overflow = torch.zeros((), dtype=torch.int32, device=dev)
+    for o in reversed(range(params.num_octaves)):
+        oh, ow = bases[o].shape
+        cap = params.candidate_capacity(oh, ow, o)
+        fields, valid, oct_overflow = _extract_octave(
+            bases[o].contiguous(), kernels[o], params, float(2 ** o), cap)
+        all_fields.append(fields)
+        all_valid.append(valid)
+        overflow = overflow + oct_overflow
+
+    merged = {k: torch.cat([f[k] for f in all_fields]) for k in all_fields[0]}
+    valid = torch.cat(all_valid)
+    merged, num_pts, total = _compact(merged, valid, params.max_pts)
+    # The global max_pts clamp (cudaSiftD.cu:1420-1421) counts as overflow.
+    overflow = (overflow + total - num_pts).to(torch.int32)
+    if params.scale_up:
+        # RescalePositions(0.5) (cudaSiftH.cu:130).
+        for k in ("xpos", "ypos", "scale"):
+            merged[k] = merged[k] * 0.5
+
+    n = params.max_pts
+
+    def z():
+        return torch.zeros((n,), dtype=torch.float32, device=dev)
+
+    return SiftData(
+        num_pts=num_pts,
+        xpos=merged["xpos"],
+        ypos=merged["ypos"],
+        scale=merged["scale"],
+        sharpness=merged["sharpness"],
+        edgeness=merged["edgeness"],
+        orientation=merged["orientation"],
+        score=z(),
+        ambiguity=z(),
+        match=torch.full((n,), -1, dtype=torch.int32, device=dev),
+        match_xpos=z(),
+        match_ypos=z(),
+        match_error=z(),
+        subsampling=merged["subsampling"],
+        data=merged["data"],
+        overflow=overflow,
+    )
+
+
+def _as_frames(images, device, ndim: int) -> torch.Tensor:
+    t = torch.as_tensor(images, dtype=torch.float32, device=device)
+    if t.ndim != ndim:
+        what = "a 2-D grayscale image" if ndim == 2 else "(N, H, W) frames"
+        raise ValueError(f"expected {what}, got shape {tuple(t.shape)}")
+    return t
+
+
+def extract_sift(image, params: SiftParams = SiftParams(),
+                 device: torch.device | str | None = None) -> SiftData:
+    """Extract SIFT keypoints + descriptors from one grayscale image.
+
+    ``image``: (H, W) tensor or array-like, float32 grayscale (0..255
+    typical). A tensor stays on its device unless ``device`` is given;
+    array-likes go to ``device`` (PyTorch's default, the CPU, when None).
+    """
+    img = _as_frames(image, device, 2)
+    _check_params(params, img.device)
+    return _extract(img, params)
+
+
+def extract_sift_throughput(images, params: SiftParams = SiftParams(),
+                            device: torch.device | str | None = None) -> SiftData:
+    """Extract SIFT from N same-shaped frames, one after another; fields
+    carry a leading (N,) batch axis (``num_pts`` has shape (N,))."""
+    frames = _as_frames(images, device, 3)
+    _check_params(params, frames.device)
+    outs = [_extract(frames[i], params) for i in range(frames.shape[0])]
+    return SiftData(**{
+        name: torch.stack([getattr(o, name) for o in outs])
+        for name in SiftData.__dataclass_fields__
+    })

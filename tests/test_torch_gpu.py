@@ -1,0 +1,101 @@
+"""The four CUDA kernels against their plain versions on the card, and the
+pipeline on the card against the CPU. Marked ``gpu``: they skip without a
+CUDA device. On the card run them with
+``python -m pytest tests/test_torch_gpu.py -q --noconftest``: the conftest
+only configures jax, which these tests do not use."""
+
+import numpy as np
+import pytest
+import torch
+
+import cudasift_tpu_torch as ct
+from cudasift_tpu_torch.config import laplace_kernels
+from cudasift_tpu_torch.ops import convolve, detect
+from cudasift_tpu_torch.ops import match as match_plain
+from cudasift_tpu_torch.ops.cuda import dog, match, orient_desc, refine
+from cudasift_tpu_torch.utils.synth import make_test_image
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def octave(cuda, h=200, w=300):
+    return convolve.low_pass(torch.as_tensor(make_test_image(h, w, seed=51), device=cuda), 1.0)
+
+
+def test_dog_kernel_matches_plain(cuda):
+    img = octave(cuda)
+    taps = laplace_kernels(1)[0]
+    before = dog.KERNEL.launches
+    got = dog.dog_and_mask(img, taps, 2.0, 10.0)
+    ref = dog.dog_and_mask_plain(img, taps, 2.0, 10.0)
+    torch.cuda.synchronize()
+    assert dog.KERNEL.launches == before + 1
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+def test_refine_kernel_matches_plain(cuda):
+    img = octave(cuda)
+    d, m = dog.dog_and_mask(img, laplace_kernels(1)[0], 2.0, 10.0)
+    idx, cnt = detect.compact_mask(m, 512)
+    got = refine.refine_candidates(d, idx, cnt, 10.0, 0.0)
+    ref = detect.refine_candidates(d, idx, cnt, 10.0, 0.0)
+    assert int(cnt) > 10 and torch.equal(got.valid, ref.valid)
+    for name in ("xpos", "ypos", "scale", "sharpness", "edgeness"):
+        torch.testing.assert_close(getattr(got, name), getattr(ref, name), rtol=3e-7, atol=0)
+
+
+@pytest.mark.parametrize("mode", ["shift", "exact"])
+def test_orient_desc_kernel_matches_plain(cuda, mode):
+    img = octave(cuda)
+    rng = np.random.default_rng(52)
+    n = 64
+    x = torch.tensor(rng.uniform(-1, 300, n), dtype=torch.float32, device=cuda)
+    y = torch.tensor(rng.uniform(-1, 200, n), dtype=torch.float32, device=cuda)
+    s = torch.tensor(rng.uniform(0.9, 2.4, n), dtype=torch.float32, device=cuda)
+    live = torch.arange(n, device=cuda) % 7 != 0
+    got = orient_desc.orient_and_describe(img, x, y, s, live, mode)
+    ref = orient_desc.orient_and_describe_plain(img, x, y, s, live, mode)
+    dori = (got[2] - ref[2]).abs()
+    assert float(dori.median()) < 0.2 and float((dori < 2.0).float().mean()) >= 0.9
+    same = live & (dori < 1e-3)
+    assert int(same.sum()) >= 0.9 * int(live.sum())
+    assert float((got[0] - ref[0]).abs()[same].max()) < 2e-2
+    assert not got[0][~live].any() and not got[4][~live].any()
+    again = orient_desc.orient_and_describe(img, x, y, s, live, mode)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("use_bf16", [False, True])
+def test_match_kernel_matches_plain(cuda, use_bf16):
+    g = torch.Generator(device=cuda).manual_seed(53)
+    d1 = torch.nn.functional.normalize(torch.randn(700, 128, device=cuda, generator=g), dim=1)
+    d2 = torch.nn.functional.normalize(torch.randn(900, 128, device=cuda, generator=g), dim=1)
+    d2[[11, 40]] = d1[3]                          # a tie: lowest index wins
+    for n1, n2 in ((700, 900), (650, 601), (700, 0)):
+        got = match.match_descriptors(d1, d2, n1, n2, use_bf16=use_bf16)
+        ref = match_plain.match_descriptors(d1, d2, n1, n2, use_bf16=use_bf16)
+        assert torch.equal(got[2], ref[2])
+        torch.testing.assert_close(got[0], ref[0], rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(got[1], ref[1], rtol=1e-4, atol=1e-5)
+    assert int(match.match_descriptors(d1, d2, 700, 900)[2][3]) == 11
+
+
+def test_pipeline_on_card_matches_cpu(cuda):
+    img = make_test_image(192, 256, seed=54)
+    params = ct.SiftParams(num_octaves=3, thresh=2.0, max_pts=2048)
+    on_gpu = ct.extract_sift(torch.as_tensor(img, device=cuda), params)
+    again = ct.extract_sift(torch.as_tensor(img, device=cuda), params)
+    on_cpu = ct.extract_sift(img, params)
+    n = int(on_cpu.num_pts)
+    assert int(on_gpu.num_pts) == n and n > 30
+    torch.testing.assert_close(on_gpu.xpos.cpu(), on_cpu.xpos, rtol=1e-5, atol=1e-4)
+    assert torch.equal(on_gpu.data, again.data)
+    with pytest.raises(NotImplementedError):
+        ct.extract_sift(torch.as_tensor(img, device=cuda), ct.SiftParams(use_pallas=False))
