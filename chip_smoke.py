@@ -4,14 +4,26 @@
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 
 1. Device: needs CUDA; prints the card's name and power limit.
-2. Build: compiles the four kernels from ``cudasift_tpu_torch/csrc``.
+2. Build: compiles the eight kernels from ``cudasift_tpu_torch/csrc``, one
+   nvcc per source, all at once.
 3. Kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes of the main path on a 1920x1080 frame, with the stated
-   tolerances, and both timed with CUDA events.
-4. Main path: the reference demo flow on two synthetic 1920x1080 frames
-   (frame B is frame A warped by a known homography) -- extract, match,
-   RANSAC, refinement -- with every launch counter read after it; the
-   refined homography must map the frame corners within 1 px of the truth.
+   the shapes of the main path on a 1920x1080 frame (the matchers at
+   4096 x 4096), with the stated tolerances, and both timed with CUDA
+   events.
+4. Main path, fused: the reference demo flow on two synthetic 1920x1080
+   frames (frame B is frame A warped by a known homography) -- extract,
+   match, RANSAC, refinement -- with the launch counters set to 0 just
+   before it and read just after; the refined homography must map the frame
+   corners within 1 px of the truth.
+4b. Main path, split: the flow with ``use_fused=False,
+   use_pallas_compact=True`` (compaction, orientation-histogram and
+   descriptor kernels in place of the fused one) on the blocks pair, its
+   corner error recorded but not gated (too few matches pass its ratio
+   test); then on a dead-leaves pair (``synth.make_leaves_image``, whose
+   ratio test has margin) the fused flow and the split flow, each with the
+   same gates; then the hybrid matcher on the split flow's descriptor sets
+   against the exact one, the compaction kernel on and off (bit-identical),
+   and split against fused.
 
 Prints one JSON line with the kernels' numbers, then as its last line
 ``{"ok": true, "device": {...}}``. Any failed phase raises and exits
@@ -20,6 +32,7 @@ non-zero without that line.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -37,6 +50,26 @@ def require(cond: bool, msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def bf16_flip_case(np):
+    """The JAX package's adversarial near-tie (tests/test_pallas.py): a
+    query and 64 rows where the bfloat16x3 sweep ranks row 20 above row 40
+    while the exact float32 scores rank 40 first."""
+    q = np.full(128, 1.001, np.float32)
+
+    def exact64(x):
+        return float(q.astype(np.float64) @ x.astype(np.float64))
+
+    cand_a = np.full(128, 1.0048125, np.float32)
+    cand_a[:30] = np.float32(0.997)
+    cand_b = np.full(128, 1.003, np.float32)
+    diff = exact64(cand_a) - exact64(cand_b)
+    cand_b[:100] += np.float32((diff + 1e-4) / 1.001 / 100)
+    d2 = np.random.default_rng(7).standard_normal((64, 128)).astype(np.float32) * 0.01
+    d2[20] = cand_a
+    d2[40] = cand_b
+    return np.stack([q] * 8), d2
 
 
 def main() -> int:
@@ -57,7 +90,11 @@ def main() -> int:
     import cudasift_tpu_torch as ct
     from cudasift_tpu_torch.ops import convolve, detect
     from cudasift_tpu_torch.ops import match as match_plain
-    from cudasift_tpu_torch.ops.cuda import KERNELS, dog, match, orient_desc, refine
+    from cudasift_tpu_torch.ops import orient as orient_plain
+    from cudasift_tpu_torch.ops.cuda import (FUSED_PATH, KERNELS, SPLIT_PATH, compact,
+                                             descriptor, dog, match, orient, orient_desc,
+                                             refine)
+    from cudasift_tpu_torch.pipeline import _compact
     from cudasift_tpu_torch.utils import synth
     from cudasift_tpu_torch.utils.build import build
     from cudasift_tpu_torch.utils.timers import time_ms
@@ -81,9 +118,21 @@ def main() -> int:
     frame_b = synth.warp_image(frame_a, h_true)
     img_a = torch.as_tensor(frame_a, device=dev)
     img_b = torch.as_tensor(frame_b, device=dev)
-    bases = [convolve.low_pass(img_a, params.init_blur)]
-    for _ in range(params.num_octaves - 1):
-        bases.append(convolve.scale_down(bases[-1]))
+    # The split path's pair: a dead-leaves frame, whose ratio test has margin
+    # (the blocks pair above passes only about 8 matches through the 0.8
+    # gate), and its warp by the same homography.
+    leaves_a = synth.make_leaves_image(H, W, SEED)
+    leaf_a = torch.as_tensor(leaves_a, device=dev)
+    leaf_b = torch.as_tensor(synth.warp_image(leaves_a, h_true), device=dev)
+
+    def octave_bases(img):
+        out = [convolve.low_pass(img, params.init_blur)]
+        for _ in range(params.num_octaves - 1):
+            out.append(convolve.scale_down(out[-1]))
+        return [b.contiguous() for b in out]
+
+    bases = octave_bases(img_a)
+    leaf_bases = octave_bases(leaf_a)
     taps = params.laplace_kernels
     results = {}
 
@@ -189,6 +238,141 @@ def main() -> int:
         ms=time_ms(match.match_descriptors, d1, d2, 4096, n2),
         plain_ms=time_ms(match_plain.match_descriptors, d1, d2, 4096, n2))
 
+    # K8 on the octave-0 and octave-2 masks of frame A and of the split
+    # path's frame A (dead leaves, more candidates), with their capacities,
+    # and one saturating mask (thresh 0.5) into 1024 slots. Tolerance:
+    # indices, count and total equal. K6 and K7 then run on the dead-leaves
+    # frame's candidates.
+    cap2 = params.candidate_capacity(*bases[2].shape, 2)
+    _, mask2 = dog.dog_and_mask(bases[2], taps[2], params.thresh, params.edge_limit)
+    masks, dogs = {}, {}
+    for o in (0, 2):
+        dogs[o], masks[o] = dog.dog_and_mask(leaf_bases[o], taps[o], params.thresh,
+                                             params.edge_limit)
+    _, sat = dog.dog_and_mask(leaf_bases[0], taps[0], 0.5, params.edge_limit)
+    k8_cases = [("frame A", mask0, cap0), ("frame A", mask2, cap2),
+                ("leaves A", masks[0], cap0), ("leaves A", masks[2], cap2),
+                ("leaves A, thresh 0.5", sat, 1024)]
+    for what, mask, cap in k8_cases:
+        got8 = compact.compact_mask(mask, cap)
+        ref8 = detect.compact_mask(mask, cap, with_total=True)
+        require(all(torch.equal(a, b) for a, b in zip(got8, ref8)),
+                f"K8 differs on the {what} {tuple(mask.shape)} mask into {cap} slots")
+        log(f"K8 {what} {tuple(mask.shape)} into {cap} slots: count {int(got8[1])} of "
+            f"{int(got8[2])}, indices equal")
+    require(int(got8[1]) == 1024 < int(got8[2]), "K8 saturating case did not saturate")
+    results["compact"] = dict(
+        max_abs_err=0.0,
+        ms=time_ms(compact.compact_mask, masks[0], cap0),
+        plain_ms=time_ms(detect.compact_mask, masks[0], cap0, True))
+
+    # K6 on the octave-0 candidates, refined and front-packed as the split
+    # path packs them. Tolerance: histograms at rtol 1e-5 (atol 1e-6 for
+    # empty bins; only the order of each bin's sum differs), primary peaks
+    # within 1e-3 deg on >= 99% of the live slots.
+    lbase0 = leaf_bases[0]
+    lidx, lcount = compact.compact_mask(masks[0], cap0)[:2]
+    lc = refine.refine_candidates(dogs[0], lidx, lcount, params.edge_limit, low0)
+    f0, live0, _ = _compact({"xpos": lc.xpos, "ypos": lc.ypos, "scale": lc.scale},
+                            lc.valid, cap0)
+    nl0 = int(live0)
+    pk = torch.arange(cap0, device=dev) < live0
+    sc0 = torch.where(pk, f0["scale"], 1.0)
+    k6_args = (lbase0, f0["xpos"], f0["ypos"], sc0, live0)
+    kh = orient.orientation_histograms(*k6_args)
+    ph = orient.orientation_histograms_plain(*k6_args)
+    require(nl0 > 0 and torch.allclose(kh, ph, rtol=1e-5, atol=1e-6),
+            f"K6 histograms differ: max abs {float((kh - ph).abs().max())}")
+    require(not kh[nl0:].any(), "K6 wrote past the count")
+    kp1 = orient_plain.histogram_peaks(kh)[0][:nl0]
+    pp1 = orient_plain.histogram_peaks(ph)[0][:nl0]
+    dp = (kp1 - pp1).abs()
+    dp = torch.minimum(dp, 360.0 - dp)
+    share6 = float((dp < 1e-3).float().mean())
+    require(share6 >= 0.99, f"K6 peaks agree on {share6}")
+    k6_err = float((kh - ph).abs().max())
+    log(f"K6: {nl0} live of {cap0} slots, histogram max abs err {k6_err:.3g}, "
+        f"primary peaks within 1e-3 deg on {share6:.4f}")
+    results["orient"] = dict(max_abs_err=k6_err, ms=time_ms(orient.orientation_histograms, *k6_args),
+                             plain_ms=time_ms(orient.orientation_histograms_plain, *k6_args))
+
+    # K7 on those keypoints at their K6 orientations. Tolerance: row max-abs
+    # error <= 1e-5, unit norms within 1e-4, zeros past the count, two runs
+    # bit-identical.
+    ori0 = torch.where(pk, orient_plain.histogram_peaks(kh)[0], 0.0)
+    k7_args = (lbase0, f0["xpos"], f0["ypos"], sc0, ori0, live0)
+    kd = descriptor.extract_descriptors(*k7_args)
+    pd = descriptor.extract_descriptors_plain(*k7_args)
+    k7_err = float((kd - pd).abs().max())
+    require(k7_err <= 1e-5, f"K7 descriptors differ: max abs {k7_err}")
+    require(bool(((kd[:nl0].norm(dim=1) - 1.0).abs() < 1e-4).all()),
+            "K7 descriptors are not unit length")
+    require(not kd[nl0:].any(), "K7 wrote past the count")
+    require(torch.equal(kd, descriptor.extract_descriptors(*k7_args)), "K7 is not deterministic")
+    log(f"K7: {nl0} live of {cap0} slots, descriptor max abs err {k7_err:.3g}")
+    results["descriptor"] = dict(
+        max_abs_err=k7_err, ms=time_ms(descriptor.extract_descriptors, *k7_args),
+        plain_ms=time_ms(descriptor.extract_descriptors_plain, *k7_args))
+
+    # K5 (the hybrid tier's sweep) at 4096 x 4096 with n2 = 4001, as K4.
+    # Tolerance: against its plain version indices equal and scores at rtol
+    # 1e-6; against K4 indices equal wherever K4's best-second gap exceeds
+    # 1e-5 and scores within 1e-5. Then the JAX package's two adversarial
+    # cases: a bfloat16 near-tie flip (index 40) and duplicates across
+    # 2048-column tiles (index 50).
+    def k5_agrees(a, b, what):
+        hs, _, hi = a
+        es, ea, ei = b
+        second = ea * (es + 1e-6)
+        decided = (es - second) > 1e-5
+        require(torch.equal(hi[decided], ei[decided]),
+                f"K5 {what}: indices differ on {int((hi != ei)[decided].sum())} decided rows")
+        err = float((hs - es).abs().max())
+        require(err <= 1e-5, f"K5 {what}: scores differ by {err}")
+        return int(decided.sum()), int((hi == ei).sum()), err
+
+    # The sweep's own candidates: columns equal but where two bfloat16x3
+    # scores tie within the summation order's rounding (>= 99.9%), scores
+    # within 1e-6 where the columns agree.
+    ck = match.sweep_candidates(d1, d2, 4096, n2)
+    cp = match_plain.sweep_candidates(d1, d2, 4096, n2)
+    agree = ck[1] == cp[1]
+    k5_err = float((ck[0] - cp[0]).abs()[agree].max())
+    share5 = float(agree.float().mean())
+    require(share5 >= 0.999 and k5_err <= 1e-6,
+            f"K5 sweep differs: columns agree on {share5}, score err {k5_err}")
+    hk = match.match_descriptors(d1, d2, 4096, n2, rescore_k=8)
+    hp = match_plain.match_descriptors_hybrid(d1, d2, 4096, n2, 8)
+    require(torch.equal(hk[2], hp[2]), f"K5 indices differ on {int((hk[2] != hp[2]).sum())}")
+    require(torch.allclose(hk[0], hp[0], rtol=1e-6, atol=0.0), "K5 scores differ from plain")
+    dec, same, err4 = k5_agrees(hk, (ks, ka, ki), "4096 x 4096")
+    log(f"K5: 4096 x 4096 (n2 4001), candidates agree on {share5:.6f} (score max abs err "
+        f"{k5_err:.3g}), matches equal to plain; against K4 {same} of 4096 indices equal, "
+        f"{dec} rows decided, score err {err4:.3g}")
+    fd1, fd2 = (torch.as_tensor(a, device=dev) for a in bf16_flip_case(np))
+    require(match.sweep_candidates(fd1, fd2, 8, 64)[1][0, :2].tolist() == [20, 40],
+            "K5 sweep is not fooled by the bf16-flip case: its split rounds otherwise")
+    require(int(match.match_descriptors(fd1, fd2, 8, 64, rescore_k=8)[2][0]) == 40,
+            "K5 bf16-flip case lost the exact winner")
+    rng5 = np.random.default_rng(3)
+    nd = 2048 + 300
+    dd2 = rng5.standard_normal((nd, 128)).astype(np.float32)
+    dd2 /= np.linalg.norm(dd2, axis=1, keepdims=True)
+    q = dd2[2048 + 100].copy()
+    dd2[50] = q
+    dd2[700] = q
+    dup = match.match_descriptors(torch.as_tensor(np.stack([q] * 4), device=dev),
+                                  torch.as_tensor(dd2, device=dev), 4, nd, rescore_k=8)
+    require(dup[2].tolist() == [50] * 4, f"K5 duplicate tie-break gave {dup[2].tolist()}")
+    log("K5: bf16-flip case -> index 40, duplicate tie-break -> index 50")
+    results["match_sweep"] = dict(
+        max_abs_err=k5_err,
+        ms=time_ms(match.sweep_candidates, d1, d2, 4096, n2),
+        plain_ms=time_ms(match_plain.sweep_candidates, d1, d2, 4096, n2))
+    log(f"K5 with its rescore (the whole rescore_k=8 tier): "
+        f"{time_ms(match.match_descriptors, d1, d2, 4096, n2, False, 2048, 8):.4f} ms, "
+        f"plain {time_ms(match_plain.match_descriptors_hybrid, d1, d2, 4096, n2, 8):.4f} ms")
+
     # The whole pipeline on a small input: CUDA kernels against the plain
     # versions on the CPU. Same point count, keypoint set overlap >= 0.97.
     small = synth.make_test_image(192, 256, SEED)
@@ -210,45 +394,127 @@ def main() -> int:
     # ---- 4. Main path ----------------------------------------------------
     gen = torch.Generator(device=dev)
 
-    def demo_flow():
+    def demo_flow(fparams, fa, fb):
         gen.manual_seed(SEED)
-        da = ct.extract_sift(img_a, params)
-        db = ct.extract_sift(img_b, params)
+        da = ct.extract_sift(fa, fparams)
+        db = ct.extract_sift(fb, fparams)
         m = ct.match_sift_data(da, db)
         h1, nm = ct.find_homography(m, gen, num_loops=10240, min_score=0.0,
                                     max_ambiguity=0.80, thresh=5.0)
         h2, nfit, _ = ct.improve_homography(m, h1, 5, 0.0, 0.80, 3.0)
         return da, db, m, h1, nm, h2, nfit
 
-    torch.cuda.synchronize()
+    def run_flow(label, fparams, pair, path, absent=(), gate_homography=True):
+        """Drive the demo flow once on a frame ``pair`` with every launch
+        counter at 0, require each kernel of ``path`` launched and none of
+        ``absent``, gate the results (the corner error only with
+        ``gate_homography``), and time extraction and matching."""
+        torch.cuda.synchronize()
+        for k in KERNELS:
+            k.launches = 0
+        da, db, m, h1, nm, h2, nfit = demo_flow(fparams, *pair)
+        torch.cuda.synchronize()
+        launches = {k.name: k.launches for k in KERNELS}
+        log(f"{label} launches: {launches}")
+        require(all(k.launches > 0 for k in path) and not any(k.launches for k in absent),
+                f"{label}: wrong kernels launched: {launches}")
+
+        for name, d in (("A", da), ("B", db)):
+            n = int(d.num_pts)
+            require(n > 0, f"{label}: frame {name} has no keypoints")
+            for f in ("xpos", "ypos", "scale", "orientation", "data"):
+                require(bool(torch.isfinite(getattr(d, f)[:n]).all()),
+                        f"{label}: frame {name} {f} not finite")
+        n_a = int(da.num_pts)
+        matched = int(((m.ambiguity[:n_a] < 0.8) & (m.score[:n_a] > 0.0)).sum())
+        err1 = synth.corner_error(h1.cpu().numpy(), h_true, H, W)
+        err2 = synth.corner_error(h2.cpu().numpy(), h_true, H, W)
+        require(err2 < 1.0 or not gate_homography,
+                f"{label}: refined homography corner error {err2} px >= 1.0")
+
+        extract_ms = time_ms(ct.extract_sift, pair[0], fparams, iters=5, warmup=1)
+        match_ms = time_ms(ct.match_sift_data, da, db, iters=5, warmup=1)
+        log(f"{label}: num_pts A {n_a} B {int(db.num_pts)}, overflow A "
+            f"{int(da.overflow)} B {int(db.overflow)}, matches (ambiguity < 0.8) "
+            f"{matched}, RANSAC inliers {int(nm)}, numFit {int(nfit)}, corner error "
+            f"RANSAC {err1:.4f} px refined {err2:.4f} px")
+        log(f"{label}: extraction {extract_ms:.3f} ms per 1920x1080 frame, "
+            f"match {match_ms:.3f} ms ({n_a} x {int(db.num_pts)} of 32768 slots)")
+        return da, db, launches
+
+    _, _, launches = run_flow("main path", params, (img_a, img_b), FUSED_PATH)
+
+    # ---- 4b. Main path, split --------------------------------------------
+    # The split flow on the blocks pair, for the record: its exact
+    # descriptors pass fewer matches through the 0.8 ratio gate than
+    # find_homography's minimum of 8, so its corner error is not gated here.
+    # Then both paths on the dead-leaves pair, gated, the split one with the
+    # launch counts that go into the kernel table.
+    split = dataclasses.replace(params, use_fused=False, use_pallas_compact=True)
+    run_flow("split path, blocks", split, (img_a, img_b), SPLIT_PATH,
+             absent=(orient_desc.KERNEL,), gate_homography=False)
+    leaves = (leaf_a, leaf_b)
+    run_flow("fused path, leaves", params, leaves, FUSED_PATH)
+    sa, sb, split_launches = run_flow("split path, leaves", split, leaves, SPLIT_PATH,
+                                      absent=(orient_desc.KERNEL,))
+    for k in SPLIT_PATH:
+        if k not in FUSED_PATH:
+            launches[k.name] = split_launches[k.name]
+
+    # K5 on the split flow's own descriptor sets against K4, with the
+    # agreement rule of phase 3.
     for k in KERNELS:
         k.launches = 0
-    da, db, m, h1, nm, h2, nfit = demo_flow()
+    hyb = match.match_descriptors(sa.data, sb.data, sa.num_pts, sb.num_pts, rescore_k=8)
     torch.cuda.synchronize()
-    launches = {k.name: k.launches for k in KERNELS}
-    log(f"main path launches: {launches}")
-    require(all(v > 0 for v in launches.values()), f"a kernel did not launch: {launches}")
+    launches[match.SWEEP_KERNEL.name] = match.SWEEP_KERNEL.launches
+    require(match.SWEEP_KERNEL.launches > 0, "K5 did not launch on the split flow's sets")
+    ext = match.match_descriptors(sa.data, sb.data, sa.num_pts, sb.num_pts)
+    n_sa = int(sa.num_pts)
+    dec, same, err5 = k5_agrees(tuple(t[:n_sa] for t in hyb), tuple(t[:n_sa] for t in ext),
+                                "split flow")
+    log(f"K5 on the split flow ({n_sa} x {int(sb.num_pts)}): {same} of {n_sa} indices "
+        f"equal to K4, {dec} rows decided, score err {err5:.3g}")
 
-    for name, d in (("A", da), ("B", db)):
-        n = int(d.num_pts)
-        require(n > 0, f"frame {name} has no keypoints")
-        for f in ("xpos", "ypos", "scale", "orientation", "data"):
-            require(bool(torch.isfinite(getattr(d, f)[:n]).all()),
-                    f"frame {name} {f} not finite")
-    n_a = int(da.num_pts)
-    matched = int(((m.ambiguity[:n_a] < 0.8) & (m.score[:n_a] > 0.0)).sum())
-    err1 = synth.corner_error(h1.cpu().numpy(), h_true, H, W)
-    err2 = synth.corner_error(h2.cpu().numpy(), h_true, H, W)
-    require(err2 < 1.0, f"refined homography corner error {err2} px >= 1.0")
+    # The compaction kernel on and off: bit-identical SiftData.
+    plain_compact = ct.extract_sift(leaf_a, dataclasses.replace(split, use_pallas_compact=False))
+    for f in ct.SiftData.__dataclass_fields__:
+        require(torch.equal(getattr(plain_compact, f), getattr(sa, f)),
+                f"use_pallas_compact changes {f}")
+    log("split path: use_pallas_compact True and False give bit-identical SiftData")
 
-    extract_ms = time_ms(ct.extract_sift, img_a, params, iters=5, warmup=1)
-    match_ms = time_ms(ct.match_sift_data, da, db, iters=5, warmup=1)
-    log(f"main path: num_pts A {n_a} B {int(db.num_pts)}, overflow A "
-        f"{int(da.overflow)} B {int(db.overflow)}, matches (ambiguity < 0.8) "
-        f"{matched}, RANSAC inliers {int(nm)}, numFit {int(nfit)}, corner error "
-        f"RANSAC {err1:.4f} px refined {err2:.4f} px")
-    log(f"main path: extraction {extract_ms:.3f} ms per 1920x1080 frame, "
-        f"match {match_ms:.3f} ms ({n_a} x {int(db.num_pts)} of 32768 slots)")
+    # Split against fused with exact descriptors, the JAX package's on-chip
+    # bands: keypoint overlap >= 0.98, orientations within 2 deg on >= 95%
+    # of position-matched points, descriptor error p99 < 5e-3.
+    fused = ct.extract_sift(leaf_a, dataclasses.replace(params, grad_mode="exact"))
+    nf = int(fused.num_pts)
+    fx, fy, fs, fo = (getattr(fused, f)[:nf].cpu().numpy()
+                      for f in ("xpos", "ypos", "scale", "orientation"))
+    sx, sy, ss, so = (getattr(sa, f)[:n_sa].cpu().numpy()
+                      for f in ("xpos", "ypos", "scale", "orientation"))
+    kf = set(zip(np.round(fx, 2), np.round(fy, 2), np.round(fs, 2)))
+    kss = set(zip(np.round(sx, 2), np.round(sy, 2), np.round(ss, 2)))
+    overlap = len(kf & kss) / max(len(kf), len(kss))
+    where_f = {}
+    for i, key in enumerate(zip(np.round(fx, 2), np.round(fy, 2))):
+        where_f.setdefault(key, []).append(i)
+    fdata, sdata = fused.data[:nf].cpu().numpy(), sa.data[:n_sa].cpu().numpy()
+    oerr, derr = [], []
+    for i, key in enumerate(zip(np.round(sx, 2), np.round(sy, 2))):
+        js = where_f.get(key)
+        if js is None or len(js) != 1:
+            continue
+        do = abs(float(fo[js[0]]) - float(so[i]))
+        oerr.append(min(do, 360.0 - do))
+        derr.append(float(np.abs(fdata[js[0]] - sdata[i]).max()))
+    oerr, derr = np.asarray(oerr), np.asarray(derr)
+    ori_share = float((oerr < 2.0).mean())
+    p99 = float(np.percentile(derr, 99))
+    log(f"split vs fused (exact) on leaves frame A: {n_sa} / {nf} points, overlap {overlap:.4f}, "
+        f"{len(oerr)} singleton matches, orientations within 2 deg {ori_share:.4f} "
+        f"(max {oerr.max():.4g} deg), descriptor error p99 {p99:.3g} max {derr.max():.3g}")
+    require(overlap >= 0.98 and len(oerr) > 100 and ori_share >= 0.95 and p99 < 5e-3,
+            "split and fused paths disagree beyond the JAX package's bands")
 
     rows = []
     for k in KERNELS:

@@ -70,11 +70,19 @@ class SiftParams:
       stack directly, there are no layout tiers to choose from;
     - ``compute_dtype`` is float32 throughout.
 
+    ``use_fused=False`` selects the split orientation/descriptor path (the
+    count-gated histogram and descriptor kernels, descriptors always
+    ``"exact"``), and only that selects it: the JAX package also falls back
+    to it when an octave base is too large for the fused TPU kernel's VMEM
+    budget (frames about 8K wide), a limit the port's fused kernel does not
+    have. ``use_pallas_compact=True`` compacts each octave's candidates with
+    the compaction kernel instead of plain PyTorch; both give the same
+    indices.
+
     Settings whose kernels are not ported yet raise ``NotImplementedError``
-    in ``extract_sift``: ``use_fused=False`` (split orientation/descriptor
-    kernels), ``use_pallas_compact=True`` (compaction kernel),
-    ``grad_mode="fast"`` / ``fast_gradients=True``, and ``use_pallas=False``
-    on a CUDA tensor (the port has no non-kernel GPU path).
+    in ``extract_sift``: ``grad_mode="fast"`` / ``fast_gradients=True``, and
+    ``use_pallas=False`` on a CUDA tensor (the port has no non-kernel GPU
+    path).
     """
 
     num_octaves: int = 5

@@ -33,44 +33,15 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "sift_common.cuh"
+
 namespace {
+
+using sift::atan2_poly;
+using sift::tent;
 
 constexpr int THREADS = 256;
 constexpr int MAXP = 48, MAXPW = 64;
-
-__device__ float atan2_poly(float y, float x) {
-    const float absx = fabsf(x), absy = fabsf(y);
-    const float mx = fmaxf(absx, absy), mn = fminf(absx, absy);
-    const float z = mn / (mx == 0.0f ? 1.0f : mx);
-    const float s = z * z;
-    float r = -0.0040540580f;
-    r = r * s + 0.0218612288f;
-    r = r * s + -0.0559098861f;
-    r = r * s + 0.0964200441f;
-    r = r * s + -0.1390853351f;
-    r = r * s + 0.1994653599f;
-    r = r * s + -0.3332985605f;
-    r = r * s + 0.9999993329f;
-    r = r * z;
-    if (absy > absx) r = 1.5707963268f - r;
-    if (x < 0.0f) r = 3.1415926536f - r;
-    return y < 0.0f ? -r : r;
-}
-
-__device__ float fast_atan2(float y, float x) {
-    const float absx = fabsf(x), absy = fabsf(y);
-    const float mx = fmaxf(absx, absy), mn = fminf(absx, absy);
-    const float a = mn / (mx == 0.0f ? 1.0f : mx);
-    const float s = a * a;
-    float r = ((-0.0464964749f * s + 0.15931422f) * s - 0.327622764f) * s * a + a;
-    if (absy > absx) r = 1.57079637f - r;
-    if (x < 0.0f) r = 3.14159274f - r;
-    return y < 0.0f ? -r : r;
-}
-
-__device__ __forceinline__ float tent(int p, float s) {
-    return fmaxf(1.0f - fabsf((float)p - s), 0.0f);
-}
 
 template <bool SHIFT>
 __global__ void __launch_bounds__(THREADS)
@@ -87,10 +58,7 @@ orient_desc_kernel(const float* __restrict__ img, int h, int w,
     __shared__ float hist[32];
     __shared__ float oris[2];
     __shared__ int nori;
-    __shared__ float wsp[16][256];
-    __shared__ float g1s[256], g2s[256];
-    __shared__ int ais[256], aps[256];
-    __shared__ float desc[128], red[128];
+    __shared__ sift::DescShared ds;
 
     const int k = blockIdx.x;
     const int t = threadIdx.x;
@@ -126,20 +94,7 @@ orient_desc_kernel(const float* __restrict__ img, int h, int w,
         const int r = i / (PW + 1), c = i % (PW + 1);
         patch[r][c] = img[(size_t)min(oy + r, h - 1) * w + min(ox + c, w - 1)];
     }
-    {
-        // Trilinear spatial weights of grid sample t for the 16 cells.
-        const float gx = (float)(t % 16) - 7.5f, gy = (float)(t / 16) - 7.5f;
-        const float cy = floorf((gy + 7.5f + 2.0f) / 4.0f) - 1.0f;
-        const float fy = (gy + 7.5f - 1.5f) / 4.0f - cy;
-        const float cx = floorf((gx + 7.5f + 2.0f) / 4.0f) - 1.0f;
-        const float fx = (gx + 7.5f - 1.5f) / 4.0f - cx;
-        for (int rc = 0; rc < 16; ++rc) {
-            const float r = (float)(rc / 4), c = (float)(rc % 4);
-            const float wr = (cy == r ? 1.0f - fy : 0.0f) + (cy + 1.0f == r ? fy : 0.0f);
-            const float wc = (cx == c ? 1.0f - fx : 0.0f) + (cx + 1.0f == c ? fx : 0.0f);
-            wsp[rc][t] = wr * wc;
-        }
-    }
+    sift::fill_spatial_weights(ds, t);  // trilinear weights of grid sample t
     __syncthreads();
 
     // Phase 2: the 13x13 orientation grid.
@@ -211,7 +166,7 @@ orient_desc_kernel(const float* __restrict__ img, int h, int w,
     const float gx = (float)(t % 16) - 7.5f, gy = (float)(t / 16) - 7.5f;
     const float lx0 = x - (float)ox, ly0 = y - (float)oy;
     const float s12 = 0.75f * sc;
-    const float gweight = expf(-(gx * gx + gy * gy) / 128.0f);
+    const float gweight = sift::grid_gauss(t);
     for (int o = 0; o < 2; ++o) {
         float* out = (o == 0 ? desc1 : desc2) + (size_t)k * 128;
         if (o >= nori) {
@@ -272,48 +227,7 @@ orient_desc_kernel(const float* __restrict__ img, int h, int w,
             dx = v[0] - v[1];
             dy = v[2] - v[3];
         }
-        const float grad = sqrtf(dx * dx + dy * dy) * gweight;
-        const float angf = (float)(4.0 / 3.1415) * fast_atan2(dy, dx) + 4.0f;
-        const float angi_raw = floorf(angf);
-        const float frac = angf - angi_raw;
-        const int ai = (((int)angi_raw % 8) + 8) % 8;
-        g1s[t] = grad * (1.0f - frac);
-        g2s[t] = grad * frac;
-        ais[t] = ai;
-        aps[t] = ai == 7 ? 0 : ai + 1;
-        __syncthreads();
-        if (t < 128) {
-            const int rc = t / 8, a = t % 8;
-            float acc = 0.0f;
-            for (int s = 0; s < 256; ++s) {
-                const float ws = wsp[rc][s];
-                if (ws == 0.0f) continue;
-                const float ga = (ais[s] == a ? g1s[s] : 0.0f) + (aps[s] == a ? g2s[s] : 0.0f);
-                acc = acc + ws * ga;
-            }
-            desc[t] = acc;
-            red[t] = acc * acc;
-        }
-        __syncthreads();
-        for (int half = 64; half > 0; half /= 2) {
-            if (t < half) red[t] = red[t] + red[t + half];
-            __syncthreads();
-        }
-        const float n1 = 1.0f / sqrtf(fmaxf(red[0], 1e-30f));
-        __syncthreads();
-        float t1 = 0.0f;
-        if (t < 128) {
-            t1 = fminf(desc[t] * n1, 0.2f);
-            red[t] = t1 * t1;
-        }
-        __syncthreads();
-        for (int half = 64; half > 0; half /= 2) {
-            if (t < half) red[t] = red[t] + red[t + half];
-            __syncthreads();
-        }
-        const float n2 = 1.0f / sqrtf(fmaxf(red[0], 1e-30f));
-        if (t < 128) out[t] = t1 * n2;
-        __syncthreads();
+        sift::bin_and_write(ds, t, dx, dy, gweight, out);
     }
 }
 

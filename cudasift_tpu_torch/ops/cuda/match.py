@@ -1,12 +1,21 @@
-"""K4 wrapper: brute-force matcher with a fused running top-2.
+"""K4 and K5 wrappers: the brute-force matcher with a fused running top-2,
+and the candidate sweep of its hybrid exact tier.
 
-Replaces the TPU kernel ``cudasift_tpu/ops/pallas/match.py``
+K4 replaces the TPU kernel ``cudasift_tpu/ops/pallas/match.py``
 (``match_descriptors_pallas``, default tier). The CUDA kernel
 (``csrc/match.cu``) is bound by arithmetic: N1*N2*128 float32
 multiply-adds, computed by the kernel itself on the CUDA cores (no cuBLAS,
 no TF32), with the score matrix never written out. The second set's live
 count is read on the device, so no host sync is needed. Its plain version
 is ``ops.match.match_descriptors``, which CPU tensors take.
+
+K5 replaces the TPU kernel ``_sweep_candidates`` of the same file, reached
+by ``match_descriptors(..., rescore_k=k)``. The CUDA kernel
+(``csrc/match_sweep.cu``) scores every pair in the three-product bfloat16
+split on the CUDA cores and keeps each row's top two per 256-column chunk;
+the float32 rescore of the top ``k`` candidates is plain PyTorch
+(``ops.match.exact_rescore``), as it is XLA in the JAX package. Its plain
+version is ``ops.match.sweep_candidates``, which CPU tensors take.
 """
 
 from __future__ import annotations
@@ -15,7 +24,8 @@ import ctypes
 
 import torch
 
-from ...utils.build import Kernel, check, ptr
+from .. import match as plain
+from ...utils.build import Kernel, check, count_tensor, ptr
 
 KERNEL = Kernel(
     "match.cu", "match_descriptors",
@@ -25,31 +35,60 @@ KERNEL = Kernel(
     replaces="cudasift_tpu/ops/pallas/match.py:255",
 )
 
+SWEEP_KERNEL = Kernel(
+    "match_sweep.cu", "sweep_candidates",
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
+    replaces="cudasift_tpu/ops/pallas/match.py:160",
+)
+
+
+def _check_sets(d1: torch.Tensor, d2: torch.Tensor, n1, n2):
+    """Check both descriptor sets; return (n1, n2) as 0-d int32 tensors on
+    their device."""
+    dev = d1.device
+    check(d1, "d1", torch.float32, (d1.shape[0], 128), dev)
+    check(d2, "d2", torch.float32, (d2.shape[0], 128), dev)
+    return count_tensor(n1, "n1", dev), count_tensor(n2, "n2", dev)
+
+
+def sweep_candidates(d1: torch.Tensor, d2: torch.Tensor, n1, n2):
+    """(cand_s, cand_i), each (N1, 2 * ceil(N2 / 256)): every row's top two
+    (score, column) per 256-column chunk of the bfloat16x3 scores; see
+    ``ops.match.sweep_candidates``."""
+    if d1.device.type == "cpu":
+        return plain.sweep_candidates(d1, d2, n1, n2)
+    n1_t, n2_t = _check_sets(d1, d2, n1, n2)
+    n1_cap, n2_cap = d1.shape[0], d2.shape[0]
+    nch = -(-n2_cap // plain.SWEEP_CHUNK)
+    cand_s = torch.empty((n1_cap, 2 * nch), dtype=torch.float32, device=d1.device)
+    cand_i = torch.empty((n1_cap, 2 * nch), dtype=torch.int32, device=d1.device)
+    SWEEP_KERNEL(ptr(d1), ptr(d2), n1_cap, n2_cap, ptr(n1_t), ptr(n2_t), nch,
+                 ptr(cand_s), ptr(cand_i))
+    return cand_s, cand_i
+
 
 def match_descriptors(d1: torch.Tensor, d2: torch.Tensor, n1, n2,
-                      use_bf16: bool = False, tile: int = 2048):
+                      use_bf16: bool = False, tile: int = 2048,
+                      rescore_k: int | None = None):
     """(score, ambiguity, index) for the first ``n1`` rows of ``d1`` against
     the first ``n2`` rows of ``d2``; see ``ops.match.match_descriptors``.
     ``n1``/``n2`` are ints or 0-d int32 tensors; ``tile`` only shapes the
-    plain version's loop."""
+    plain version's loop. ``rescore_k`` (without ``use_bf16``) selects the
+    hybrid exact tier, ``ops.match.match_descriptors_hybrid``, with the
+    sweep kernel on CUDA tensors."""
+    if rescore_k is not None and not use_bf16:
+        return plain.match_descriptors_hybrid(d1, d2, n1, n2, rescore_k,
+                                              sweep=sweep_candidates)
     if d1.device.type == "cpu":
-        from ..match import match_descriptors as plain
-
-        return plain(d1, d2, n1, n2, tile=tile, use_bf16=use_bf16)
+        return plain.match_descriptors(d1, d2, n1, n2, tile=tile, use_bf16=use_bf16)
+    n1_t, n2_t = _check_sets(d1, d2, n1, n2)
     dev = d1.device
     n1_cap, n2_cap = d1.shape[0], d2.shape[0]
-    check(d1, "d1", torch.float32, (n1_cap, 128), dev)
-    check(d2, "d2", torch.float32, (n2_cap, 128), dev)
-    counts = []
-    for name, n in (("n1", n1), ("n2", n2)):
-        if not isinstance(n, torch.Tensor):
-            n = torch.tensor(int(n), dtype=torch.int32, device=dev)
-        check(n, name, torch.int32, (), dev)
-        counts.append(n)
     score = torch.empty((n1_cap,), dtype=torch.float32, device=dev)
     ambiguity = torch.empty((n1_cap,), dtype=torch.float32, device=dev)
     index = torch.empty((n1_cap,), dtype=torch.int32, device=dev)
-    KERNEL(ptr(d1), ptr(d2), n1_cap, n2_cap, ptr(counts[0]), ptr(counts[1]),
+    KERNEL(ptr(d1), ptr(d2), n1_cap, n2_cap, ptr(n1_t), ptr(n2_t),
            1 if use_bf16 else 0,
            ptr(score), ptr(ambiguity), ptr(index))
     return score, ambiguity, index

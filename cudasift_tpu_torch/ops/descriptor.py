@@ -1,6 +1,8 @@
 """128-D SIFT descriptors (ExtractSiftDescriptorsCONSTNew,
 cudaSiftD.cu:308-417): the plain version of phases 4-5 of the fused
-orientation+descriptor kernel (``ops/cuda/orient_desc.py``).
+orientation+descriptor kernel (``ops/cuda/orient_desc.py``) and, with the
+split geometry ``texture.SPLIT_DESC`` and the ``"exact"`` sampler, of the
+descriptor kernel (``ops/cuda/descriptor.py``).
 
 Geometry (cudaSiftD.cu:330-343): a 16x16 grid rotated by the keypoint
 orientation with spacing (12/16)*scale and the reference's +0.5 sample
@@ -22,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from .texture import fast_atan2, keypoint_patches
+from .texture import FUSED, Geometry, fast_atan2, keypoint_patches
 
 
 def _grid(device):
@@ -145,10 +147,10 @@ def normalize(d: torch.Tensor) -> torch.Tensor:
 
 def extract_descriptors(img: torch.Tensor, xpos: torch.Tensor, ypos: torch.Tensor,
                         scale: torch.Tensor, orientation: torch.Tensor,
-                        mode: str = "shift") -> torch.Tensor:
+                        mode: str = "shift", geom: Geometry = FUSED) -> torch.Tensor:
     """(N, 128) descriptors of oriented keypoints (orientation in degrees),
-    with the fused kernel's patch geometry (``texture.keypoint_patches``)."""
-    p = keypoint_patches(img, xpos, ypos, scale)
+    with the patch geometry ``geom`` (``texture.keypoint_patches``)."""
+    p = keypoint_patches(img, xpos, ypos, scale, geom)
     dx, dy = sample_gradients(
         p.read, p.x - p.ox.to(torch.float32), p.y - p.oy.to(torch.float32),
         (12.0 / 16.0) * scale, orientation, p.rows, p.cols, mode)

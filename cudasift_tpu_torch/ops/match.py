@@ -6,6 +6,11 @@ matching.cu:301-397, 1090-1206).
 per-row running (best, second, index), so the score matrix is never held
 whole. Tiles are disjoint, so merging two triples needs no index
 deduplication.
+
+``match_descriptors_hybrid`` is the hybrid exact tier (``rescore_k``): a
+bfloat16x3 candidate sweep keeping each row's top two per 256-column chunk
+(``sweep_candidates`` is the plain version of the sweep kernel), then
+``exact_rescore`` of each row's top-k candidates in float32.
 """
 
 from __future__ import annotations
@@ -54,6 +59,93 @@ def match_descriptors(d1: torch.Tensor, d2: torch.Tensor, n1, n2,
     index = torch.clamp(index, min=0).to(torch.int32)
     rows = torch.arange(n1_cap, device=dev) < n1
     zero = torch.zeros((), dtype=torch.float32, device=dev)
+    return (torch.where(rows, best, zero),
+            torch.where(rows, second / (best + 1e-6), zero),
+            torch.where(rows, index, 0))
+
+
+# Hybrid tier: columns per chunk of the sweep, the score of a masked column
+# and the index that never wins (the TPU kernel's constants).
+SWEEP_CHUNK = 256
+DEAD = -1e30
+BIG = 2 ** 30
+
+
+def split_bf16(a: torch.Tensor):
+    """(hi, lo) float32 tensors holding bfloat16 values, ``hi = bf16(a)``
+    and ``lo = bf16(a - hi)``, both rounded to nearest even."""
+    hi = a.to(torch.bfloat16).to(torch.float32)
+    lo = (a - hi).to(torch.bfloat16).to(torch.float32)
+    return hi, lo
+
+
+def sweep_candidates(d1: torch.Tensor, d2: torch.Tensor, n1, n2):
+    """Candidate sweep of the hybrid matcher (plain version of
+    ``ops/cuda/match.py:sweep_candidates``).
+
+    Scores are the three-product bfloat16 split ``hi.hi + (hi.lo + lo.hi)``
+    in float32; columns at or past ``n2`` score ``DEAD``. For each row and
+    each 256-column chunk (the second set padded to whole chunks) returns the
+    top two (score, column), higher score first, lower column on equal
+    scores, as entries 2c and 2c+1 of (cand_s (N1, 2*chunks) f32, cand_i
+    (N1, 2*chunks) int32). Rows at or past ``n1`` hold ``DEAD`` and 0.
+    """
+    n1_cap, n2_cap = d1.shape[0], d2.shape[0]
+    dev = d1.device
+    nch = -(-n2_cap // SWEEP_CHUNK)
+    pad = nch * SWEEP_CHUNK - n2_cap
+    if pad:
+        d2 = torch.cat([d2, torch.zeros((pad, d2.shape[1]), dtype=d2.dtype, device=dev)])
+    a_hi, a_lo = split_bf16(d1)
+    b_hi, b_lo = split_bf16(d2)
+    scores = a_hi @ b_hi.T + (a_hi @ b_lo.T + a_lo @ b_hi.T)
+    col = torch.arange(nch * SWEEP_CHUNK, device=dev)
+    s = torch.where(col < n2, scores, DEAD).reshape(n1_cap, nch, SWEEP_CHUNK)
+    cc = col.reshape(nch, SWEEP_CHUNK)
+    b1 = s.max(dim=2).values
+    i1 = torch.where(s == b1[..., None], cc, BIG).min(dim=2).values
+    s2 = torch.where(cc == i1[..., None], -torch.inf, s)
+    b2 = s2.max(dim=2).values
+    i2 = torch.where(s2 == b2[..., None], cc, BIG).min(dim=2).values
+    cand_s = torch.stack([b1, b2], dim=2).reshape(n1_cap, 2 * nch)
+    cand_i = torch.stack([i1, i2], dim=2).reshape(n1_cap, 2 * nch).to(torch.int32)
+    rows = (torch.arange(n1_cap, device=dev) < n1)[:, None]
+    return torch.where(rows, cand_s, DEAD), torch.where(rows, cand_i, 0)
+
+
+def exact_rescore(cand_s: torch.Tensor, cand_i: torch.Tensor, d1: torch.Tensor,
+                  d2: torch.Tensor, n2, k: int):
+    """Rescore each row's top-``k`` sweep candidates in float32 (the JAX
+    package's ``_exact_rescore``): returns (best, second, index), the lowest
+    column winning equal exact scores and -1 where no candidate lives.
+    Candidates tied at the k-th place are taken in candidate order."""
+    k = min(k, cand_s.shape[1])
+    order = torch.sort(cand_s, dim=1, descending=True, stable=True).indices[:, :k]
+    top_s = torch.gather(cand_s, 1, order)
+    ci = torch.gather(cand_i, 1, order).to(torch.int64)
+    live = (ci < BIG) & (top_s > DEAD)
+    g = d2[torch.clamp(ci, 0, d2.shape[0] - 1)]                 # (N1, k, 128)
+    exact = torch.bmm(g, d1[:, :, None])[:, :, 0]
+    exact = torch.where(live & (ci < n2), exact, DEAD)
+    best = exact.max(dim=1).values
+    bi = torch.where(exact == best[:, None], ci, BIG).min(dim=1).values
+    second = torch.where(ci == bi[:, None], DEAD, exact).max(dim=1).values
+    return best, second, torch.where(bi == BIG, -1, bi)
+
+
+def match_descriptors_hybrid(d1: torch.Tensor, d2: torch.Tensor, n1, n2,
+                             rescore_k: int = 8, sweep=sweep_candidates):
+    """The hybrid exact tier of ``match_descriptors``: same outputs, with
+    every score decided by the float32 rescore of the ``sweep``'s top
+    ``rescore_k`` candidates per row. ``sweep`` is the plain sweep or the
+    kernel's wrapper."""
+    cand_s, cand_i = sweep(d1, d2, n1, n2)
+    best, second, index = exact_rescore(cand_s, cand_i, d1, d2, n2, rescore_k)
+    best = torch.clamp(best, min=0.0)
+    second = torch.clamp(second, min=0.0)
+    index = torch.clamp(index, min=0).to(torch.int32)
+    rows = torch.arange(d1.shape[0], device=d1.device) < n1
+    zero = torch.zeros((), dtype=torch.float32, device=d1.device)
     return (torch.where(rows, best, zero),
             torch.where(rows, second / (best + 1e-6), zero),
             torch.where(rows, index, 0))

@@ -1,7 +1,9 @@
 """Orientation assignment (ComputeOrientationsCONST, cudaSiftD.cu:972-1057).
 
 ``compute_orientations`` is the plain version of phases 2-3 of the fused
-orientation+descriptor kernel (``ops/cuda/orient_desc.py``):
+orientation+descriptor kernel (``ops/cuda/orient_desc.py``), and with the
+split geometry ``texture.SPLIT_ORIENT`` ``keypoint_histograms`` is the plain
+version of the orientation-histogram kernel (``ops/cuda/orient.py``):
 ``orientation_histograms`` samples a 13x13 grid of image values bilinearly
 shifted by the keypoint's subpixel fraction, takes central differences over
 its inner 11x11 window, weights them with a Gaussian of sigma = 1.5*scale
@@ -13,12 +15,13 @@ from __future__ import annotations
 
 import torch
 
-from .texture import atan2_poly, keypoint_patches
+from .texture import FUSED, Geometry, atan2_poly, keypoint_patches
 
 NUM_BINS = 32
 
 
-def orientation_histograms(read, fx, fy, cbase, rbase, scale) -> torch.Tensor:
+def orientation_histograms(read, fx, fy, cbase, rbase, scale,
+                           grid_max: tuple[int, int] = (31, 31)) -> torch.Tensor:
     """(N, 32) gradient-orientation histograms.
 
     ``read`` is a ``texture.Patches.read``; ``fx``/``fy`` (N,) are the
@@ -26,13 +29,13 @@ def orientation_histograms(read, fx, fy, cbase, rbase, scale) -> torch.Tensor:
     column/row of grid entry 0 (``floor(x) - origin - 6``). Grid entry
     ``(uy, ux)`` holds the patch bilinearly sampled at
     ``(rbase + uy + fy, cbase + ux + fx)``, with the integer index clamped
-    to [0, 31] and the fraction kept (the fused kernel's border rule).
+    to [0, grid_max] and the fraction kept (the kernels' border rule).
     """
     n = fx.shape[0]
     dev = fx.device
     u = torch.arange(13, device=dev)
-    rows = torch.clamp(rbase[:, None] + u, 0, 31)[:, :, None]   # (N, 13, 1)
-    cols = torch.clamp(cbase[:, None] + u, 0, 31)[:, None, :]   # (N, 1, 13)
+    rows = torch.clamp(rbase[:, None] + u, 0, grid_max[0])[:, :, None]   # (N, 13, 1)
+    cols = torch.clamp(cbase[:, None] + u, 0, grid_max[1])[:, None, :]   # (N, 1, 13)
     fxv = fx[:, None, None]
     fyv = fy[:, None, None]
     v = (1.0 - fyv) * ((1.0 - fxv) * read(rows, cols) + fxv * read(rows, cols + 1)) \
@@ -85,14 +88,20 @@ def histogram_peaks(hist: torch.Tensor):
     return interp(i1, max1), interp(i2, max2), max2 > 0.8 * max1
 
 
+def keypoint_histograms(img: torch.Tensor, xpos: torch.Tensor, ypos: torch.Tensor,
+                        scale: torch.Tensor, geom: Geometry = FUSED) -> torch.Tensor:
+    """(N, 32) orientation histograms of (N,) keypoints, with the patch
+    geometry ``geom`` (``texture.keypoint_patches``)."""
+    p = keypoint_patches(img, xpos, ypos, scale, geom)
+    flx = torch.floor(p.x)
+    fly = torch.floor(p.y)
+    return orientation_histograms(
+        p.read, p.x - flx, p.y - fly, flx.to(torch.int64) - p.ox - 6,
+        fly.to(torch.int64) - p.oy - 6, scale, geom.grid_max)
+
+
 def compute_orientations(img: torch.Tensor, xpos: torch.Tensor,
                          ypos: torch.Tensor, scale: torch.Tensor):
     """(primary_deg, secondary_deg, has_second) for (N,) keypoints, with the
-    fused kernel's patch geometry (``texture.keypoint_patches``)."""
-    p = keypoint_patches(img, xpos, ypos, scale)
-    flx = torch.floor(p.x)
-    fly = torch.floor(p.y)
-    hist = orientation_histograms(
-        p.read, p.x - flx, p.y - fly, flx.to(torch.int64) - p.ox - 6,
-        fly.to(torch.int64) - p.oy - 6, scale)
-    return histogram_peaks(hist)
+    fused kernel's patch geometry."""
+    return histogram_peaks(keypoint_histograms(img, xpos, ypos, scale))

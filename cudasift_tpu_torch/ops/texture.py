@@ -47,16 +47,43 @@ GEOM_LARGE = (48, 64, 22)
 SMALL_MAX_SCALE = 1.72
 
 
+@dataclasses.dataclass(frozen=True)
+class Geometry:
+    """Where a kernel reads a keypoint's patch, and how it clamps.
+
+    ``small``/``large`` are (rows, cols, margin) for scales at or below /
+    above ``small_max_scale``; the patch origin is ``max(floor(.) - margin,
+    0)``. ``clamp_to_image`` clamps the sampling position into the image box
+    first. ``grid_max`` (rows, cols) bounds the orientation grid's integer
+    index, whose subpixel fraction is kept.
+    """
+
+    small: tuple[int, int, int]
+    large: tuple[int, int, int]
+    small_max_scale: float
+    clamp_to_image: bool
+    grid_max: tuple[int, int]
+
+
+# The fused orientation+descriptor kernel (K3).
+FUSED = Geometry(GEOM_SMALL, GEOM_LARGE, SMALL_MAX_SCALE, True, (31, 31))
+# The split kernels: one patch for every scale, positions not clamped.
+# Orientation histograms (K6) read a 16x128 patch with margin 7;
+# descriptors (K7) a 48x128 patch with margin 22.
+SPLIT_ORIENT = Geometry((16, 128, 7), (16, 128, 7), float("inf"), False, (15, 127))
+SPLIT_DESC = Geometry((48, 128, 22), (48, 128, 22), float("inf"), False, (47, 127))
+
+
 @dataclasses.dataclass
 class Patches:
-    """Per-keypoint patches of the fused orientation+descriptor kernel.
+    """Per-keypoint patches of a kernel's ``Geometry``.
 
-    ``x``/``y`` are the keypoint positions clamped into the image box,
-    ``ox``/``oy`` the (N,) int64 patch origins ``max(floor(.) - margin, 0)``,
-    ``rows``/``cols`` the (N,) patch sizes. ``read(r, c)`` takes integer
-    tensors of shape (N, ...) and returns ``img[min(oy + r, H-1),
-    min(ox + c, W-1)]`` per keypoint: the patch, edge-padded past the bottom
-    and right image borders.
+    ``x``/``y`` are the keypoint sampling positions (clamped into the image
+    box where the geometry says so), ``ox``/``oy`` the (N,) int64 patch
+    origins ``max(floor(.) - margin, 0)``, ``rows``/``cols`` the (N,) patch
+    sizes. ``read(r, c)`` takes integer tensors of shape (N, ...) and returns
+    ``img[min(oy + r, H-1), min(ox + c, W-1)]`` per keypoint: the patch,
+    edge-padded past the bottom and right image borders.
     """
 
     read: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -69,15 +96,17 @@ class Patches:
 
 
 def keypoint_patches(img: torch.Tensor, xpos: torch.Tensor, ypos: torch.Tensor,
-                     scale: torch.Tensor) -> Patches:
-    """The fused kernel's patch geometry for (N,) keypoints of ``img``.
-    Sampling coordinates are clamped into the image box first; reported
-    positions are not touched."""
+                     scale: torch.Tensor, geom: Geometry = FUSED) -> Patches:
+    """The patches of (N,) keypoints of ``img`` in geometry ``geom``.
+    Reported positions are never touched."""
     h, w = img.shape
-    x = torch.clamp(xpos, 0.0, float(w - 1))
-    y = torch.clamp(ypos, 0.0, float(h - 1))
-    small = scale <= SMALL_MAX_SCALE
-    rows, cols, margin = (torch.where(small, a, b) for a, b in zip(GEOM_SMALL, GEOM_LARGE))
+    if geom.clamp_to_image:
+        x = torch.clamp(xpos, 0.0, float(w - 1))
+        y = torch.clamp(ypos, 0.0, float(h - 1))
+    else:
+        x, y = xpos, ypos
+    small = scale <= geom.small_max_scale
+    rows, cols, margin = (torch.where(small, a, b) for a, b in zip(geom.small, geom.large))
     ox = torch.clamp(torch.floor(x).to(torch.int64) - margin, min=0)
     oy = torch.clamp(torch.floor(y).to(torch.int64) - margin, min=0)
     flat = img.reshape(-1)

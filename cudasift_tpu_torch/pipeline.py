@@ -3,15 +3,24 @@
 One structure on every device: per octave, smallest first,
 
 1. the DoG kernel (K1): 8 blurs, 7 DoG planes, extremum + edge mask;
-2. raster-order compaction of the mask into the octave's candidate capacity;
+2. raster-order compaction of the mask into the octave's candidate
+   capacity: plain PyTorch, or the compaction kernel (K8) with
+   ``SiftParams(use_pallas_compact=True)``;
 3. the refine kernel (K2): subpixel refinement of the live candidates;
-4. the fused orientation + descriptor kernel (K3), on refine's validity
-   mask directly (no compaction before it);
+4. orientations and descriptors, on one of two paths:
+
+   - fused (``use_fused=True``, the default): the fused orientation +
+     descriptor kernel (K3), on refine's validity mask directly (no
+     compaction before it);
+   - split (``use_fused=False``): refine's survivors front-packed, the
+     count-gated orientation-histogram kernel (K6) and ``histogram_peaks``,
+     primaries and second-peak duplicates compacted into twice the
+     capacity, then the count-gated descriptor kernel (K7);
 5. primaries then second-peak duplicates, scaled to image coordinates.
 
 The octaves' slots are then merged by one stable compaction into
 ``max_pts``, with explicit ``overflow`` accounting. On CUDA tensors each
-of K1-K3 launches its hand-written kernel; on CPU tensors it runs the
+kernel stage launches its hand-written kernel; on CPU tensors it runs the
 kernel's plain PyTorch version. No stage reads a count back to the host.
 
 Point order matches the reference's octave recursion (cudaSiftH.cu:146-167):
@@ -27,24 +36,17 @@ import numpy as np
 import torch
 
 from .config import SiftParams
-from .ops import convolve
+from .ops import convolve, cuda
 from .ops.cuda.dog import dog_and_mask
 from .ops.cuda.orient_desc import orient_and_describe
 from .ops.cuda.refine import refine_candidates
 from .ops.detect import compact_mask, rank_select
+from .ops.orient import histogram_peaks
 from .sift_data import SiftData
 
 
 def _check_params(params: SiftParams, device: torch.device) -> None:
     """Raise NotImplementedError for settings whose kernels the port lacks."""
-    if not params.use_fused:
-        raise NotImplementedError(
-            "use_fused=False needs the split orientation/descriptor kernels "
-            "(ROADMAP.md, Queue 2: K6/K7), which are not ported yet")
-    if params.use_pallas_compact:
-        raise NotImplementedError(
-            "use_pallas_compact=True needs the compaction kernel "
-            "(ROADMAP.md, Queue 2: K8), which is not ported yet")
     if params.fast_gradients or params.grad_mode == "fast":
         raise NotImplementedError(
             "grad_mode='fast' is not ported yet (ROADMAP.md, Queue 2: K3 'fast')")
@@ -73,29 +75,69 @@ def _extract_octave(base: torch.Tensor, kernels: np.ndarray, params: SiftParams,
     (fields, slot validity, dropped candidates) with positions in image
     units (cudaSiftD.cu:410-414)."""
     dog, mask = dog_and_mask(base, kernels, params.thresh, params.edge_limit)
-    flat_idx, count, total = compact_mask(mask, capacity, with_total=True)
+    if params.use_pallas_compact:
+        flat_idx, count, total = cuda.compact.compact_mask(mask, capacity)
+    else:
+        flat_idx, count, total = compact_mask(mask, capacity, with_total=True)
     oct_overflow = total - count
     cands = refine_candidates(dog, flat_idx, count, params.edge_limit,
                               params.lowest_scale_effective / subsampling)
-    scale_safe = torch.where(cands.valid, cands.scale, 1.0)
-    desc1, desc2, primary, secondary, has_second = orient_and_describe(
-        base, cands.xpos, cands.ypos, scale_safe, cands.valid, params.grad_mode)
-
-    def dup(a, b=None):
-        return torch.cat([a, a if b is None else b])
-
-    fields = {
-        "xpos": dup(cands.xpos) * subsampling,
-        "ypos": dup(cands.ypos) * subsampling,
-        "scale": dup(cands.scale) * subsampling,
-        "sharpness": dup(cands.sharpness),
-        "edgeness": dup(cands.edgeness),
-        "orientation": dup(primary, secondary),
-        "data": torch.cat([desc1, desc2]),
-    }
-    slot_valid = torch.cat([cands.valid, cands.valid & has_second])
+    if params.use_fused:
+        fields, slot_valid = _fused_orient_describe(base, cands, params.grad_mode)
+    else:
+        fields, slot_valid = _split_orient_describe(base, cands, capacity)
+    for k in ("xpos", "ypos", "scale"):
+        fields[k] = fields[k] * subsampling
     fields["subsampling"] = torch.where(slot_valid, subsampling, 0.0)
     return fields, slot_valid, oct_overflow
+
+
+def _dup(a: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
+    """Primary slots, then their second-peak duplicates."""
+    return torch.cat([a, a if b is None else b])
+
+
+def _fused_orient_describe(base: torch.Tensor, cands, grad_mode: str):
+    """Orientations and descriptors on the fused path (K3), on refine's
+    validity mask directly. Returns (fields in octave units, slot validity)
+    over ``2 * capacity`` slots: primaries then second-peak duplicates, each
+    in raster order, with dead slots between live ones."""
+    scale_safe = torch.where(cands.valid, cands.scale, 1.0)
+    desc1, desc2, primary, secondary, has_second = orient_and_describe(
+        base, cands.xpos, cands.ypos, scale_safe, cands.valid, grad_mode)
+    fields = {k: _dup(getattr(cands, k))
+              for k in ("xpos", "ypos", "scale", "sharpness", "edgeness")}
+    fields["orientation"] = _dup(primary, secondary)
+    fields["data"] = torch.cat([desc1, desc2])
+    return fields, torch.cat([cands.valid, cands.valid & has_second])
+
+
+def _split_orient_describe(base: torch.Tensor, cands, capacity: int):
+    """Orientations and descriptors on the split path (the JAX package's
+    count-gated kernels, cudasift_tpu/pipeline.py:260-347). Returns (fields
+    in octave units, slot validity) over ``2 * capacity`` slots: primaries
+    then second-peak duplicates, each in raster order, front-packed."""
+    f0, live_count, _ = _compact(
+        {"xpos": cands.xpos, "ypos": cands.ypos, "scale": cands.scale,
+         "sharpness": cands.sharpness, "edgeness": cands.edgeness},
+        cands.valid, capacity)
+    live = torch.arange(capacity, device=base.device) < live_count
+    scale_safe = torch.where(live, f0["scale"], 1.0)
+    hist = cuda.orient.orientation_histograms(base, f0["xpos"], f0["ypos"], scale_safe,
+                                              live_count)
+    primary, secondary, has_second = histogram_peaks(hist)
+    fields = {k: _dup(v) for k, v in f0.items()}
+    fields["orientation"] = _dup(primary, secondary)
+    valid = torch.cat([live, live & has_second])
+    # Every candidate may spawn a duplicate: twice the capacity, so
+    # duplicates are only ever dropped at the global max_pts clamp.
+    desc_cap = 2 * capacity
+    fields, count, _ = _compact(fields, valid, desc_cap)
+    slot_valid = torch.arange(desc_cap, device=base.device) < count
+    fields["data"] = cuda.descriptor.extract_descriptors(
+        base, fields["xpos"], fields["ypos"], torch.where(slot_valid, fields["scale"], 1.0),
+        fields["orientation"], count)
+    return fields, slot_valid
 
 
 def _extract(image: torch.Tensor, params: SiftParams) -> SiftData:

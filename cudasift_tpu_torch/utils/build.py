@@ -3,9 +3,9 @@
 Each ``csrc/*.cu`` file exports plain C launchers and is compiled on first
 use with ``nvcc`` for ``sm_90a`` into its own shared library under
 ``build/cudasift_tpu_torch/`` at the repository root. The library's file
-name carries a hash of the source and the flags, so an edited kernel is
-rebuilt. Nothing is compiled when a module is imported: the first launch
-builds.
+name carries a hash of the source, the shared headers (``csrc/*.cuh``) and
+the flags, so an edited kernel is rebuilt. Nothing is compiled when a
+module is imported: the first launch builds.
 """
 
 from __future__ import annotations
@@ -45,6 +45,8 @@ def nvcc_path() -> str:
 def library_path(source: str, flags: tuple[str, ...]) -> Path:
     digest = hashlib.sha256()
     digest.update((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):   # shared device code
+        digest.update(header.read_bytes())
     digest.update(" ".join(ARCH_FLAGS + BASE_FLAGS + flags).encode())
     return BUILD_DIR / f"{Path(source).stem}_{digest.hexdigest()[:16]}.so"
 
@@ -132,3 +134,12 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} is not contiguous")
+
+
+def count_tensor(n, name: str, device: torch.device) -> torch.Tensor:
+    """A live count for a kernel that reads it on the device: an int becomes
+    a 0-d int32 tensor on ``device``; a tensor must already be one."""
+    if not isinstance(n, torch.Tensor):
+        n = torch.tensor(int(n), dtype=torch.int32, device=device)
+    check(n, name, torch.int32, (), device)
+    return n

@@ -19,6 +19,35 @@ def make_test_image(h: int, w: int, seed: int = 0) -> np.ndarray:
     return img.astype(np.float32)
 
 
+def make_leaves_image(h: int, w: int, seed: int = 0) -> np.ndarray:
+    """(h, w) float32 dead-leaves frame: one opaque disc per 300 px of
+    uniform random grey (0..255) with power-law radii from 10 to 160 px
+    (density ~ r^-3), painted one over another on a mid-grey field, then
+    lightly smoothed. Edges and corners at every scale make the descriptors
+    distinctive, so the 0.8 ratio test has margin (``make_test_image``'s
+    32-px blocks make block-corner descriptors alike), and the feature
+    density stays within ``SiftParams``' default candidate capacities."""
+    rng = np.random.default_rng(seed)
+    rmin, rmax = 10.0, 160.0
+    n = h * w // 300
+    u = rng.random(n)
+    r = 1.0 / np.sqrt(u * (rmin ** -2 - rmax ** -2) + rmax ** -2)
+    cx = rng.uniform(-rmax, w + rmax, n)
+    cy = rng.uniform(-rmax, h + rmax, n)
+    grey = rng.uniform(0, 255, n).astype(np.float32)
+    img = np.full((h, w), 128.0, np.float32)
+    for i in range(n):
+        x0, x1 = max(int(cx[i] - r[i]), 0), min(int(cx[i] + r[i]) + 1, w)
+        y0, y1 = max(int(cy[i] - r[i]), 0), min(int(cy[i] + r[i]) + 1, h)
+        if x0 >= x1 or y0 >= y1:
+            continue
+        yy, xx = np.ogrid[y0:y1, x0:x1]
+        img[y0:y1, x0:x1][(xx - cx[i]) ** 2 + (yy - cy[i]) ** 2 <= r[i] ** 2] = grey[i]
+    for _ in range(2):
+        img = (img + np.roll(img, 1, 0) + np.roll(img, 1, 1) + np.roll(img, -1, 0)) / 4
+    return img.astype(np.float32)
+
+
 def known_homography(h: int, w: int) -> np.ndarray:
     """(3, 3) float64 homography for an (h, w) frame: a 5 degree rotation and
     0.95 scale about the frame centre, a shift of (24, -16) px and a slight

@@ -1,6 +1,6 @@
-"""The four CUDA kernels against their plain versions on the card, and the
-pipeline on the card against the CPU. Marked ``gpu``: they skip without a
-CUDA device. On the card run them with
+"""The eight CUDA kernels (K1-K8) against their plain versions on the card,
+and the pipeline, fused and split, on the card against the CPU. Marked
+``gpu``: they skip without a CUDA device. On the card run them with
 ``python -m pytest tests/test_torch_gpu.py -q --noconftest``: the conftest
 only configures jax, which these tests do not use."""
 
@@ -12,7 +12,7 @@ import cudasift_tpu_torch as ct
 from cudasift_tpu_torch.config import laplace_kernels
 from cudasift_tpu_torch.ops import convolve, detect
 from cudasift_tpu_torch.ops import match as match_plain
-from cudasift_tpu_torch.ops.cuda import dog, match, orient_desc, refine
+from cudasift_tpu_torch.ops.cuda import compact, descriptor, dog, match, orient, orient_desc, refine
 from cudasift_tpu_torch.utils.synth import make_test_image
 
 pytestmark = pytest.mark.gpu
@@ -99,3 +99,87 @@ def test_pipeline_on_card_matches_cpu(cuda):
     assert torch.equal(on_gpu.data, again.data)
     with pytest.raises(NotImplementedError):
         ct.extract_sift(torch.as_tensor(img, device=cuda), ct.SiftParams(use_pallas=False))
+
+
+def test_compact_kernel_matches_plain(cuda):
+    _, m = dog.dog_and_mask(octave(cuda), laplace_kernels(1)[0], 2.0, 10.0)
+    g = torch.Generator(device=cuda).manual_seed(55)
+    dense = torch.rand((5, 67, 251), device=cuda, generator=g) < 0.3
+    for mask, cap in ((m, 512), (m, 8), (dense, 4096), (dense, 70000),
+                      (torch.zeros((5, 9, 9), dtype=torch.bool, device=cuda), 128)):
+        before = compact.KERNEL.launches
+        got = compact.compact_mask(mask, cap)
+        ref = detect.compact_mask(mask, cap, with_total=True)
+        assert compact.KERNEL.launches == before + 1
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
+def front_packed(cuda, n=64, live=50):
+    img = octave(cuda)
+    rng = np.random.default_rng(56)
+    # Positions reach past the left/top patch margins and the image box.
+    x = torch.tensor(rng.uniform(-1, 300, n), dtype=torch.float32, device=cuda)
+    y = torch.tensor(rng.uniform(-1, 200, n), dtype=torch.float32, device=cuda)
+    s = torch.tensor(rng.uniform(0.9, 2.4, n), dtype=torch.float32, device=cuda)
+    o = torch.tensor(rng.uniform(0, 360, n), dtype=torch.float32, device=cuda)
+    return img, x, y, s, o, torch.tensor(live, dtype=torch.int32, device=cuda)
+
+
+def test_orient_kernel_matches_plain(cuda):
+    img, x, y, s, _, count = front_packed(cuda)
+    got = orient.orientation_histograms(img, x, y, s, count)
+    ref = orient.orientation_histograms_plain(img, x, y, s, count)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+    assert not got[50:].any() and bool((got[:50].sum(dim=1) > 0).all())
+    assert torch.equal(got, orient.orientation_histograms(img, x, y, s, count))
+
+
+def test_descriptor_kernel_matches_plain(cuda):
+    img, x, y, s, o, count = front_packed(cuda)
+    got = descriptor.extract_descriptors(img, x, y, s, o, count)
+    ref = descriptor.extract_descriptors_plain(img, x, y, s, o, count)
+    assert float((got - ref).abs().max()) <= 1e-5
+    torch.testing.assert_close(got[:50].norm(dim=1), torch.ones(50, device=cuda),
+                               rtol=0, atol=1e-4)
+    assert not got[50:].any()
+    assert torch.equal(got, descriptor.extract_descriptors(img, x, y, s, o, count))
+
+
+def test_sweep_kernel_matches_plain(cuda):
+    g = torch.Generator(device=cuda).manual_seed(57)
+    d1 = torch.nn.functional.normalize(torch.randn(300, 128, device=cuda, generator=g), dim=1)
+    d2 = torch.nn.functional.normalize(torch.randn(2500, 128, device=cuda, generator=g), dim=1)
+    d2[[40, 2100]] = d1[5]                     # a tie across chunks: lowest index wins
+    for n1, n2 in ((300, 2500), (270, 1901), (300, 1)):
+        before = match.SWEEP_KERNEL.launches
+        got = match.match_descriptors(d1, d2, n1, n2, rescore_k=8)
+        assert match.SWEEP_KERNEL.launches == before + 1
+        ref = match_plain.match_descriptors_hybrid(d1, d2, n1, n2, 8)
+        assert torch.equal(got[2], ref[2])
+        torch.testing.assert_close(got[0], ref[0], rtol=1e-6, atol=1e-7)
+        exact = match.match_descriptors(d1, d2, n1, n2)
+        assert torch.equal(got[2], exact[2])
+        torch.testing.assert_close(got[0], exact[0], rtol=0, atol=1e-5)
+    cs, ci = match.sweep_candidates(d1, d2, 270, 1901)
+    ps, pi = match_plain.sweep_candidates(d1, d2, 270, 1901)
+    assert torch.equal(ci, pi)
+    torch.testing.assert_close(cs, ps, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("use_pallas_compact", [False, True])
+def test_split_pipeline_on_card_matches_cpu(cuda, use_pallas_compact):
+    img = make_test_image(192, 256, seed=58)
+    params = ct.SiftParams(num_octaves=3, thresh=2.0, max_pts=2048, use_fused=False,
+                           use_pallas_compact=use_pallas_compact)
+    counts = {k: k.launches for k in (compact.KERNEL, orient.KERNEL, descriptor.KERNEL,
+                                      orient_desc.KERNEL)}
+    on_gpu = ct.extract_sift(torch.as_tensor(img, device=cuda), params)
+    again = ct.extract_sift(torch.as_tensor(img, device=cuda), params)
+    launched = {k.name: k.launches - c for k, c in counts.items()}
+    assert launched["orient"] == launched["descriptor"] == 6 and launched["orient_desc"] == 0
+    assert launched["compact"] == (6 if use_pallas_compact else 0)
+    on_cpu = ct.extract_sift(img, params)
+    n = int(on_cpu.num_pts)
+    assert int(on_gpu.num_pts) == n and n > 30
+    torch.testing.assert_close(on_gpu.xpos.cpu(), on_cpu.xpos, rtol=1e-5, atol=1e-4)
+    assert torch.equal(on_gpu.data, again.data)

@@ -16,7 +16,8 @@ from cudasift_tpu.ops.pallas.match import match_descriptors_pallas
 from cudasift_tpu.ops.pallas.refine import refine_candidates_pallas
 
 from cudasift_tpu_torch.ops import match as tmatch
-from cudasift_tpu_torch.ops.cuda import KERNELS, dog, match, orient_desc, refine
+from cudasift_tpu_torch.ops.cuda import (FUSED_PATH, KERNELS, SPLIT_PATH, compact, descriptor,
+                                         dog, match, orient, orient_desc, refine)
 from cudasift_tpu_torch.utils.synth import make_test_image
 
 
@@ -141,5 +142,16 @@ def test_wrappers_reject_other_devices():
         orient_desc.orient_and_describe(t(np.zeros((8, 8), np.float32)), t(np.zeros(1, np.float32)),
                                         t(np.zeros(1, np.float32)), t(np.ones(1, np.float32)),
                                         torch.ones(1, dtype=torch.bool), mode="fast")
-    assert [k.name for k in KERNELS] == ["dog", "refine", "orient_desc", "match"]
+    with pytest.raises(ValueError):
+        compact.compact_mask(torch.empty((5, 32, 32), dtype=torch.bool, device=meta), 64)
+    with pytest.raises(ValueError):
+        orient.orientation_histograms(img, v, v, v, 8)
+    with pytest.raises(ValueError):
+        descriptor.extract_descriptors(img, v, v, v, v, 8)
+    with pytest.raises(ValueError):
+        match.match_descriptors(torch.empty((8, 128), device=meta),
+                                torch.empty((8, 128), device=meta), 8, 8, rescore_k=8)
+    assert [k.name for k in KERNELS] == ["dog", "refine", "orient_desc", "match",
+                                         "match_sweep", "orient", "descriptor", "compact"]
     assert all(k.replaces.startswith("cudasift_tpu/ops/pallas/") for k in KERNELS)
+    assert set(FUSED_PATH) | set(SPLIT_PATH) == set(KERNELS) - {match.SWEEP_KERNEL}

@@ -91,10 +91,13 @@ def test_overflow_and_max_pts_clamp_match_jax():
 
 def test_unported_settings_raise():
     img = np.zeros((32, 32), np.float32)
-    for kw in ({"use_fused": False}, {"use_pallas_compact": True},
-               {"grad_mode": "fast"}, {"fast_gradients": True}):
+    for kw in ({"grad_mode": "fast"}, {"fast_gradients": True},
+               {"grad_mode": "fast", "use_fused": False}):
         with pytest.raises(NotImplementedError):
             ct.extract_sift(img, ct.SiftParams(**kw))
+    # The split path and the compaction kernel are ported.
+    for kw in ({"use_fused": False}, {"use_pallas_compact": True}):
+        assert int(ct.extract_sift(img, ct.SiftParams(num_octaves=2, **kw)).num_pts) == 0
     with pytest.raises(ValueError):
         ct.extract_sift(np.zeros((2, 32, 32), np.float32))
     with pytest.raises(ValueError):
