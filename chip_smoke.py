@@ -4,12 +4,16 @@
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 
 1. Device: needs CUDA; prints the card's name and power limit.
-2. Build: compiles the eight kernels from ``cudasift_tpu_torch/csrc``, one
-   nvcc per source, all at once.
+2. Build: compiles every kernel source in ``cudasift_tpu_torch/csrc`` (one
+   nvcc per source, all at once) and the C++ host codec (g++).
 3. Kernels: each kernel against its plain PyTorch version on the card, at
    the shapes of the main path on a 1920x1080 frame (the matchers at
-   4096 x 4096), with the stated tolerances, and both timed with CUDA
-   events.
+   4096 x 4096), with the stated tolerances, both timed with CUDA events,
+   beside the least time the card could take (``bound_ms``) and, where one
+   PyTorch call computes the same function, that call's time
+   (``library_ms``; the port never calls it). K3 in its three samplers;
+   the patch-acquisition kernels (P1) on the benchmark's own inputs; the
+   eight capability probes (P2).
 4. Main path, fused: the reference demo flow on two synthetic 1920x1080
    frames (frame B is frame A warped by a known homography) -- extract,
    match, RANSAC, refinement -- with the launch counters set to 0 just
@@ -20,10 +24,13 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    descriptor kernels in place of the fused one) on the blocks pair, its
    corner error recorded but not gated (too few matches pass its ratio
    test); then on a dead-leaves pair (``synth.make_leaves_image``, whose
-   ratio test has margin) the fused flow and the split flow, each with the
-   same gates; then the hybrid matcher on the split flow's descriptor sets
-   against the exact one, the compaction kernel on and off (bit-identical),
-   and split against fused.
+   ratio test has margin) the fused flow, the fused flow with the ``fast``
+   sampler and the split flow, each with the same gates; then the hybrid
+   matcher on the split flow's descriptor sets against the exact one, the
+   compaction kernel on and off (bit-identical), and split against fused.
+4c. The demo CLI (``cudasift_tpu_torch.cli``) on the card, in-process, on
+   the dead-leaves pair written as PGM files; then the patch-acquisition
+   benchmark and the probe runner, each with the counters at 0.
 
 Prints one JSON line with the kernels' numbers, then as its last line
 ``{"ok": true, "device": {...}}``. Any failed phase raises and exits
@@ -32,15 +39,45 @@ non-zero without that line.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
 H, W = 1080, 1920
 SEED = 0
+# The CLI's numFit floor on the dead-leaves pair (frames rounded to PGM,
+# thresh 3.0): its first run on an H100 gave 7233; 10% below that.
+CLI_MIN_FIT = 6500
+
+# Published peaks of one NVIDIA H100 SXM at its full 700 W limit: device
+# memory bytes/s, and dense operations/s by type.
+HBM_BYTES_S = 3.35e12
+PEAK_OPS_S = {"f32": 67e12, "bf16": 989e12}
+
+
+def bound(nbytes: float, ops: float, kind: str = "f32") -> tuple[float, str]:
+    """The least time (ms) the card could take: the larger of ``nbytes``
+    over the memory rate and ``ops`` over the peak rate of ``kind``, and
+    which of the two sets it."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = ops / PEAK_OPS_S[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def keypoint_square(scale, reach: float, per_scale: float):
+    """Bytes of the image squares that live keypoints read: side
+    2 * ceil(per_scale * scale + reach) + 1 pixels each."""
+    import torch
+
+    side = 2 * torch.ceil(per_scale * scale + reach) + 1
+    return float((side * side).sum()) * 4
 
 
 def require(cond: bool, msg: str) -> None:
@@ -88,15 +125,17 @@ def main() -> int:
     import numpy as np
 
     import cudasift_tpu_torch as ct
+    from cudasift_tpu_torch import cli
     from cudasift_tpu_torch.ops import convolve, detect
     from cudasift_tpu_torch.ops import match as match_plain
     from cudasift_tpu_torch.ops import orient as orient_plain
-    from cudasift_tpu_torch.ops.cuda import (FUSED_PATH, KERNELS, SPLIT_PATH, compact,
-                                             descriptor, dog, match, orient, orient_desc,
-                                             refine)
+    from cudasift_tpu_torch.ops.cuda import (FUSED_PATH, KERNELS, LIBRARY, SPLIT_PATH, acquire,
+                                             compact, descriptor, dog, match, orient,
+                                             orient_desc, probes, refine)
     from cudasift_tpu_torch.pipeline import _compact
-    from cudasift_tpu_torch.utils import synth
+    from cudasift_tpu_torch.utils import native, synth
     from cudasift_tpu_torch.utils.build import build
+    from cudasift_tpu_torch.utils.io import read_pgm, write_pgm
     from cudasift_tpu_torch.utils.timers import time_ms
 
     dev = torch.device("cuda", 0)
@@ -105,11 +144,14 @@ def main() -> int:
 
     # ---- 2. Build --------------------------------------------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        libs = list(pool.map(lambda k: build(k.source, k.flags), KERNELS))
+    sources = sorted({(k.source, k.flags) for k in KERNELS})
+    with ThreadPoolExecutor(len(sources) + 1) as pool:
+        codec = pool.submit(native.have_native)
+        libs = list(pool.map(lambda sf: build(*sf), sources))
+        require(codec.result(), "the C++ host codec did not build (no g++)")
     for k in KERNELS:
         k.load()
-    log(f"build: {time.perf_counter() - t0:.1f} s -> {[p.name for p in libs]}")
+    log(f"build: {time.perf_counter() - t0:.1f} s -> {[p.name for p in libs]} + host codec")
 
     # ---- 3. Each kernel against its plain version ------------------------
     params = ct.SiftParams(num_octaves=5, init_blur=1.0, thresh=3.0, max_pts=32768)
@@ -155,11 +197,19 @@ def main() -> int:
         log(f"K1 octave {o} {tuple(base.shape)}: dog max abs err {err:.3g}, "
             f"mask {nref} set, {sym} differ")
     base0 = bases[0].contiguous()
+    # Bound: the base and taps in, 7 DoG planes (f32) and 5 mask planes
+    # (bool) out; per pixel 8 blurs of two 9-tap passes (17 operations
+    # each), 7 differences, and 5 scales of 26 comparisons plus an edge test
+    # of about 10 operations.
+    hw = H * W
     results["dog"] = dict(
         max_abs_err=k1_err,
         ms=time_ms(dog.dog_and_mask, base0, taps[0], params.thresh, params.edge_limit),
         plain_ms=time_ms(dog.dog_and_mask_plain, base0, taps[0], params.thresh,
-                         params.edge_limit))
+                         params.edge_limit),
+        bound=bound(4 * hw + 4 * taps[0].size + 7 * 4 * hw + 5 * hw,
+                    hw * (8 * 2 * 17 + 7 + 5 * (26 + 10))),
+        library_ms=None)
 
     # K2 on octave 0's real candidates. Tolerance: valid equal, fields at
     # rtol 3e-7 (1 ulp of exp2 between the kernel and PyTorch).
@@ -177,44 +227,69 @@ def main() -> int:
         k2_err = max(k2_err, float((a - b).abs().max()))
     log(f"K2: {int(count)} candidates of {int(total)} in {cap0} slots, "
         f"{int(got.valid.sum())} valid, max abs err {k2_err:.3g}")
+    # Bound: the indices and count in, a 3x3x3 DoG cube per candidate, five
+    # f32 fields and the validity out for every slot; about 200 operations
+    # per candidate (gradient, Hessian, 3x3 solve, tests).
+    ncand = int(count)
     results["refine"] = dict(
         max_abs_err=k2_err,
         ms=time_ms(refine.refine_candidates, dog0, flat_idx, count,
                    params.edge_limit, low0),
         plain_ms=time_ms(detect.refine_candidates, dog0, flat_idx, count,
-                         params.edge_limit, low0))
+                         params.edge_limit, low0),
+        bound=bound(4 * cap0 + 4 + 27 * 4 * ncand + 5 * 4 * cap0 + cap0, 200 * ncand),
+        library_ms=None)
 
-    # K3 (shift) on those refined keypoints. Tolerance: orientation median
-    # error < 0.2 deg and >= 90% within 2 deg, has2 agreement >= 90%; on the
-    # keypoints whose orientations agree (>= 90% of them), descriptor
-    # per-row max-abs error median < 4e-3 and max < 2e-2.
+    # K3 on those refined keypoints, in the default sampler (shift) and the
+    # fast one. Tolerance: orientation median error < 0.2 deg and >= 90%
+    # within 2 deg, has2 agreement >= 90%; on the keypoints whose
+    # orientations agree (>= 90% of them), descriptor per-row max-abs error
+    # median < 4e-3 and max < 2e-2.
     sc = torch.where(got.valid, got.scale, 1.0)
-    k3_args = (base0, got.xpos, got.ypos, sc, got.valid, "shift")
-    kd1, kd2, ko1, ko2, kh2 = orient_desc.orient_and_describe(*k3_args)
-    pd1, pd2, po1, po2, ph2 = orient_desc.orient_and_describe_plain(*k3_args)
     live = got.valid
     nlive = int(live.sum())
     require(nlive > 0, "K3 has no live keypoints")
-    dori = (ko1 - po1).abs()[live]
-    dori = torch.minimum(dori, 360.0 - dori)
-    require(float(dori.median()) < 0.2 and float((dori < 2.0).float().mean()) >= 0.9,
-            f"K3 orientations differ: median {float(dori.median())}")
-    agree2 = float((kh2 == ph2)[live].float().mean())
-    require(agree2 >= 0.9, f"K3 has2 agrees on {agree2}")
-    same = live & ((ko1 - po1).abs() < 1e-3)
-    require(int(same.sum()) >= 0.9 * nlive, "K3 orientations agree on < 90%")
-    rowerr = (kd1 - pd1).abs().max(dim=1).values[same]
-    require(float(rowerr.median()) < 4e-3 and float(rowerr.max()) < 2e-2,
-            f"K3 descriptors differ: median {float(rowerr.median())}, max {float(rowerr.max())}")
-    norms = kd1[live].norm(dim=1)
-    require(bool(((norms - 1.0).abs() < 1e-4).all()), "K3 descriptors are not unit length")
-    log(f"K3: {nlive} live, orientation median err {float(dori.median()):.3g} deg, "
-        f"has2 agreement {agree2:.4f}, descriptor row err median "
-        f"{float(rowerr.median()):.3g} max {float(rowerr.max()):.3g}")
-    results["orient_desc"] = dict(
-        max_abs_err=float(rowerr.max()),
-        ms=time_ms(orient_desc.orient_and_describe, *k3_args),
-        plain_ms=time_ms(orient_desc.orient_and_describe_plain, *k3_args, iters=5))
+
+    def check_k3(mode):
+        k3_args = (base0, got.xpos, got.ypos, sc, got.valid, mode)
+        kd1, kd2, ko1, ko2, kh2 = orient_desc.orient_and_describe(*k3_args)
+        pd1, pd2, po1, po2, ph2 = orient_desc.orient_and_describe_plain(*k3_args)
+        dori = (ko1 - po1).abs()[live]
+        dori = torch.minimum(dori, 360.0 - dori)
+        require(float(dori.median()) < 0.2 and float((dori < 2.0).float().mean()) >= 0.9,
+                f"K3 {mode} orientations differ: median {float(dori.median())}")
+        agree2 = float((kh2 == ph2)[live].float().mean())
+        require(agree2 >= 0.9, f"K3 {mode} has2 agrees on {agree2}")
+        same = live & ((ko1 - po1).abs() < 1e-3)
+        require(int(same.sum()) >= 0.9 * nlive, f"K3 {mode} orientations agree on < 90%")
+        rowerr = (kd1 - pd1).abs().max(dim=1).values[same]
+        require(float(rowerr.median()) < 4e-3 and float(rowerr.max()) < 2e-2,
+                f"K3 {mode} descriptors differ: median {float(rowerr.median())}, "
+                f"max {float(rowerr.max())}")
+        norms = kd1[live].norm(dim=1)
+        require(bool(((norms - 1.0).abs() < 1e-4).all()),
+                f"K3 {mode} descriptors are not unit length")
+        log(f"K3 {mode}: {nlive} live, orientation median err {float(dori.median()):.3g} deg, "
+            f"has2 agreement {agree2:.4f}, descriptor row err median "
+            f"{float(rowerr.median()):.3g} max {float(rowerr.max()):.3g}")
+        # Bound: positions, scales and the live mask in, each live
+        # keypoint's image square (reach 7.96 * scale + 2.5 px) read once,
+        # both descriptor tables and the orientations out for every slot;
+        # about 6000 operations for a keypoint's orientation and 256 grid
+        # samples of about 60 (sampler, magnitude, angle, binning) per
+        # descriptor.
+        n = got.xpos.shape[0]
+        ndesc = nlive + int((kh2 & live).sum())
+        nbytes = (13 * n + keypoint_square(sc[live], 2.5, 7.96)
+                  + 2 * 128 * 4 * n + 9 * n)
+        return dict(max_abs_err=float(rowerr.max()),
+                    ms=time_ms(orient_desc.orient_and_describe, *k3_args),
+                    plain_ms=time_ms(orient_desc.orient_and_describe_plain, *k3_args, iters=5),
+                    bound=bound(nbytes, 6000 * nlive + 256 * 60 * ndesc),
+                    library_ms=None)
+
+    results["orient_desc"] = check_k3("shift")
+    results["orient_desc_fast"] = check_k3("fast")
 
     # K4 at 4096 x 4096 with an n2 mask. Tolerance: indices equal, scores
     # at rtol 1e-5.
@@ -233,10 +308,17 @@ def main() -> int:
     require(torch.allclose(ks, ps, rtol=1e-5, atol=1e-6), "K4 scores differ")
     k4_err = float((ks - ps).abs().max())
     log(f"K4: 4096 x 4096 (n2 4001), indices equal, score max abs err {k4_err:.3g}")
+    # Bound: both sets in, three (N1,) outputs; 4096 x 4001 x 128
+    # multiply-adds in float32 on the CUDA cores. Library: torch.mm and
+    # torch.topk(k=2), two calls (no single call computes a top-2 match).
+    top2 = lambda a, b, n: torch.topk(torch.mm(a, b[:n].t()), 2, dim=1)  # noqa: E731
+    match_bound = bound(2 * 4096 * 128 * 4 + 3 * 4096 * 4, 2.0 * 4096 * 4001 * 128)
     results["match"] = dict(
         max_abs_err=k4_err,
         ms=time_ms(match.match_descriptors, d1, d2, 4096, n2),
-        plain_ms=time_ms(match_plain.match_descriptors, d1, d2, 4096, n2))
+        plain_ms=time_ms(match_plain.match_descriptors, d1, d2, 4096, n2),
+        bound=match_bound,
+        library_ms=time_ms(top2, d1, d2, 4001))
 
     # K8 on the octave-0 and octave-2 masks of frame A and of the split
     # path's frame A (dead leaves, more candidates), with their capacities,
@@ -261,10 +343,16 @@ def main() -> int:
         log(f"K8 {what} {tuple(mask.shape)} into {cap} slots: count {int(got8[1])} of "
             f"{int(got8[2])}, indices equal")
     require(int(got8[1]) == 1024 < int(got8[2]), "K8 saturating case did not saturate")
+    # Bound: the mask (bool) in, indices, count and total out; one
+    # operation per mask entry. Library: torch.nonzero of the flat mask (it
+    # returns every set entry, uncapped, and waits for the host to size its
+    # output).
     results["compact"] = dict(
         max_abs_err=0.0,
         ms=time_ms(compact.compact_mask, masks[0], cap0),
-        plain_ms=time_ms(detect.compact_mask, masks[0], cap0, True))
+        plain_ms=time_ms(detect.compact_mask, masks[0], cap0, True),
+        bound=bound(masks[0].numel() + 4 * cap0 + 8, masks[0].numel()),
+        library_ms=time_ms(torch.nonzero, masks[0].reshape(-1)))
 
     # K6 on the octave-0 candidates, refined and front-packed as the split
     # path packs them. Tolerance: histograms at rtol 1e-5 (atol 1e-6 for
@@ -293,8 +381,14 @@ def main() -> int:
     k6_err = float((kh - ph).abs().max())
     log(f"K6: {nl0} live of {cap0} slots, histogram max abs err {k6_err:.3g}, "
         f"primary peaks within 1e-3 deg on {share6:.4f}")
-    results["orient"] = dict(max_abs_err=k6_err, ms=time_ms(orient.orientation_histograms, *k6_args),
-                             plain_ms=time_ms(orient.orientation_histograms_plain, *k6_args))
+    # Bound: positions, scales and the count in, each live keypoint's
+    # 17 x 17 image square, the (slots, 36) histograms out; about 40
+    # operations for each of 121 samples per live keypoint.
+    results["orient"] = dict(
+        max_abs_err=k6_err, ms=time_ms(orient.orientation_histograms, *k6_args),
+        plain_ms=time_ms(orient.orientation_histograms_plain, *k6_args),
+        bound=bound(12 * cap0 + 4 + nl0 * 17 * 17 * 4 + cap0 * 36 * 4, nl0 * 121 * 40),
+        library_ms=None)
 
     # K7 on those keypoints at their K6 orientations. Tolerance: row max-abs
     # error <= 1e-5, unit norms within 1e-4, zeros past the count, two runs
@@ -310,9 +404,16 @@ def main() -> int:
     require(not kd[nl0:].any(), "K7 wrote past the count")
     require(torch.equal(kd, descriptor.extract_descriptors(*k7_args)), "K7 is not deterministic")
     log(f"K7: {nl0} live of {cap0} slots, descriptor max abs err {k7_err:.3g}")
+    # Bound: positions, scales, orientations and the count in, each live
+    # keypoint's image square (reach 7.96 * scale + 2.5 px), the (slots,
+    # 128) descriptors out; 256 samples of about 70 operations (four
+    # bilinear taps, magnitude, angle, binning) per live keypoint.
     results["descriptor"] = dict(
         max_abs_err=k7_err, ms=time_ms(descriptor.extract_descriptors, *k7_args),
-        plain_ms=time_ms(descriptor.extract_descriptors_plain, *k7_args))
+        plain_ms=time_ms(descriptor.extract_descriptors_plain, *k7_args),
+        bound=bound(16 * cap0 + 4 + keypoint_square(sc0[:nl0], 2.5, 7.96) + cap0 * 128 * 4,
+                    nl0 * 256 * 70),
+        library_ms=None)
 
     # K5 (the hybrid tier's sweep) at 4096 x 4096 with n2 = 4001, as K4.
     # Tolerance: against its plain version indices equal and scores at rtol
@@ -365,13 +466,85 @@ def main() -> int:
                                   torch.as_tensor(dd2, device=dev), 4, nd, rescore_k=8)
     require(dup[2].tolist() == [50] * 4, f"K5 duplicate tie-break gave {dup[2].tolist()}")
     log("K5: bf16-flip case -> index 40, duplicate tie-break -> index 50")
+    # Bound: both sets in, the (N1, 32) candidate scores and columns out;
+    # three bfloat16 products of 4096 x 4001 x 128 multiply-adds on the
+    # tensor cores. Library: as K4's, torch.mm and torch.topk(k=2), the
+    # float32 top-2 that the sweep and its rescore compute.
+    nch = -(-4096 // match_plain.SWEEP_CHUNK)
     results["match_sweep"] = dict(
         max_abs_err=k5_err,
         ms=time_ms(match.sweep_candidates, d1, d2, 4096, n2),
-        plain_ms=time_ms(match_plain.sweep_candidates, d1, d2, 4096, n2))
+        plain_ms=time_ms(match_plain.sweep_candidates, d1, d2, 4096, n2),
+        bound=bound(2 * 4096 * 128 * 4 + 4096 * 2 * nch * 8, 3 * 2.0 * 4096 * 4001 * 128,
+                    "bf16"),
+        library_ms=time_ms(top2, d1, d2, 4001))
     log(f"K5 with its rescore (the whole rescore_k=8 tier): "
         f"{time_ms(match.match_descriptors, d1, d2, 4096, n2, False, 2048, 8):.4f} ms, "
         f"plain {time_ms(match_plain.match_descriptors_hybrid, d1, d2, 4096, n2, 8):.4f} ms")
+
+    # P1 on the benchmark's own inputs (2048 keypoints, a 1136 x 2176
+    # frame, seed 0): each variant against its plain version at rtol 1e-5
+    # (the summation order differs). Bound: the union of the windows read
+    # once (overlapping windows share bytes), the origins (and the used
+    # realignments) in, the (256, 8, 128) blocks out; one add per window
+    # element.
+    a_img, a_oy, a_ox, a_rxy = acquire.bench_inputs(2048, H, W, SEED)
+    a_args = tuple(torch.as_tensor(a, device=dev) for a in (a_img, a_oy, a_ox, a_rxy))
+    nkp = a_oy.shape[0]
+    out_bytes = nkp // acquire.GROUP * 8 * 128 * 4
+    for name, staged, roll in acquire.VARIANTS:
+        kern = acquire.KERNELS[(staged, roll)]
+        got_p = acquire.acquire(*a_args, staged, roll)
+        ref_p = acquire.acquire_plain(*a_args, roll)
+        require(torch.allclose(got_p, ref_p, rtol=1e-5, atol=0.0),
+                f"P1 {name} differs: max rel err "
+                f"{float(((got_p - ref_p).abs() / ref_p.abs().clamp(min=1.0)).max())}")
+        rows, cols = acquire.window_index(a_args[1], a_args[2], a_args[3], roll, *a_img.shape)
+        covered = torch.zeros(a_img.shape, dtype=torch.bool, device=dev)
+        covered[rows, cols] = True
+        nbytes = 4 * int(covered.sum()) + 8 * nkp + (8 * nkp if roll else 0) + out_bytes
+        ms = time_ms(acquire.acquire, *a_args, staged, roll)
+        results[kern.name] = dict(
+            max_abs_err=float((got_p - ref_p).abs().max()), ms=ms,
+            plain_ms=time_ms(acquire.acquire_plain, *a_args, roll),
+            bound=bound(nbytes, nkp * acquire.P * acquire.PW), library_ms=None)
+        log(f"P1 {name}: {nkp} keypoints, equal to plain at rtol 1e-5, {ms:.4f} ms "
+            f"({ms * 1e6 / nkp:.1f} ns per keypoint), bound {results[kern.name]['bound'][0]:.4f} ms "
+            f"({int(covered.sum())} distinct window pixels)")
+
+    # P2: each probe against its plain version on the card, and against
+    # what the TPU probe asserts (probes.PROBES). Bound: inputs and output
+    # once; the products' multiply-adds at the rate of their type.
+    def probe_bound(p, args, out):
+        nbytes = sum(a.numel() * a.element_size() for a in args) + out.numel() * 4
+        if p.kernel is probes.LANE_LANE_DOT:
+            return bound(nbytes, 2.0 * 16 * args[1].shape[0] * args[0].shape[1], "bf16")
+        if p.kernel is probes.SMALL_DOT:
+            return bound(nbytes, 2.0 * out.numel() * args[0].shape[1])
+        return bound(nbytes, out.numel() if p.kernel is probes.SCALE_BY_SCALAR else 0)
+
+    probe_library = {
+        probes.SCALE_BY_SCALAR: lambda s_, x: torch.mul(x, s_[2]),
+        probes.TRANSPOSE: lambda x: x.t().contiguous(),
+        probes.BLOCK_DIAG: torch.block_diag,
+        probes.SMALL_DOT: torch.mm,
+    }
+    for p in probes.PROBES:
+        args = p.inputs(dev)
+        out = p.fn(*args)
+        ok, err = p.judge(out.cpu().numpy(), args)
+        plain = p.plain(*args)
+        perr = float((out - plain).abs().max())
+        tol = 0.0 if p.kernel not in (probes.LANE_LANE_DOT, probes.SMALL_DOT) else 1e-3
+        require(ok and perr <= tol, f"P2 {p.name}: check {ok} (error {err}), "
+                                    f"against plain {perr} > {tol}")
+        lib = probe_library.get(p.kernel)
+        results[p.kernel.name] = dict(
+            max_abs_err=perr, ms=time_ms(p.fn, *args),
+            plain_ms=time_ms(p.plain, *args), bound=probe_bound(p, args, out),
+            library_ms=None if lib is None else time_ms(lib, *args))
+        log(f"P2 {p.name} ({p.kernel.name}): check passed (error {err:.3g}), "
+            f"against plain {perr:.3g}")
 
     # The whole pipeline on a small input: CUDA kernels against the plain
     # versions on the CPU. Same point count, keypoint set overlap >= 0.97.
@@ -415,7 +588,7 @@ def main() -> int:
         da, db, m, h1, nm, h2, nfit = demo_flow(fparams, *pair)
         torch.cuda.synchronize()
         launches = {k.name: k.launches for k in KERNELS}
-        log(f"{label} launches: {launches}")
+        log(f"{label} launches: { {k.name: k.launches for k in LIBRARY} }")
         require(all(k.launches > 0 for k in path) and not any(k.launches for k in absent),
                 f"{label}: wrong kernels launched: {launches}")
 
@@ -455,6 +628,10 @@ def main() -> int:
              absent=(orient_desc.KERNEL,), gate_homography=False)
     leaves = (leaf_a, leaf_b)
     run_flow("fused path, leaves", params, leaves, FUSED_PATH)
+    # The fused path with K3's fast sampler, gated as the shift flow above.
+    _, _, fast_launches = run_flow("fast path, leaves",
+                                   dataclasses.replace(params, fast_gradients=True),
+                                   leaves, FUSED_PATH)
     sa, sb, split_launches = run_flow("split path, leaves", split, leaves, SPLIT_PATH,
                                       absent=(orient_desc.KERNEL,))
     for k in SPLIT_PATH:
@@ -516,13 +693,72 @@ def main() -> int:
     require(overlap >= 0.98 and len(oerr) > 100 and ori_share >= 0.95 and p99 < 5e-3,
             "split and fused paths disagree beyond the JAX package's bands")
 
-    rows = []
+    # ---- 4c. The demo CLI, the acquisition benchmark, the probes ----------
+    # The CLI on the card (its default device), in-process, on the
+    # dead-leaves pair written as PGM files by the port's writer.
+    expected_keys = {"num_pts1", "num_pts2", "overflow1", "overflow2", "num_fit",
+                     "num_matches", "match_rate_pct", "first_call_ms", "extract_ms",
+                     "match_ms"}
+    with tempfile.TemporaryDirectory() as tmp:
+        left, right, out_pgm = (os.path.join(tmp, f) for f in ("l.pgm", "r.pgm", "annotated.pgm"))
+        write_pgm(left, leaves_a)
+        write_pgm(right, leaf_b.cpu().numpy())
+        torch.cuda.synchronize()
+        for k in KERNELS:
+            k.launches = 0
+        captured = io.StringIO()
+        with contextlib.redirect_stdout(captured):
+            rc = cli.main(["--left", left, "--right", right, "--thresh", "3.0", "--json",
+                           "--time", "--out", out_pgm])
+        torch.cuda.synchronize()
+        cli_launches = {k.name: k.launches for k in KERNELS}
+        for line in captured.getvalue().splitlines():
+            log(f"cli | {line}")
+        require(rc == 0, f"the CLI returned {rc}")
+        require(all(k.launches > 0 for k in FUSED_PATH),
+                f"CLI: a fused-path kernel did not launch: {cli_launches}")
+        metrics = json.loads(captured.getvalue().strip().splitlines()[-1])
+        require(set(metrics) == expected_keys, f"CLI JSON keys {sorted(metrics)}")
+        require(metrics["num_pts1"] > 0 and metrics["overflow1"] == 0
+                and metrics["overflow2"] == 0, f"CLI points or overflow: {metrics}")
+        require(metrics["num_fit"] > CLI_MIN_FIT,
+                f"CLI numFit {metrics['num_fit']} <= {CLI_MIN_FIT}")
+        annotated = read_pgm(out_pgm)
+        require(annotated.shape == (H, W), f"annotated image shape {annotated.shape}")
+        require(native.have_native(), "the CLI ran without the C++ host codec")
+        log(f"CLI on the card: launches { {k.name: k.launches for k in FUSED_PATH} }, "
+            f"annotated {annotated.shape} with {int((annotated == 255).sum())} white pixels, "
+            f"C++ host codec {native.have_native()}")
+    for k in FUSED_PATH:
+        launches[k.name] = cli_launches[k.name]
+    launches["orient_desc_fast"] = fast_launches[orient_desc.KERNEL.name]
+
+    # The acquisition benchmark and the probe runner, each with the counters
+    # at 0 just before it and read just after.
+    torch.cuda.synchronize()
     for k in KERNELS:
-        r = results[k.name]
-        rows.append({"name": k.name, "route": "cuda", "source": k.source_path,
-                     "replaces": k.replaces, "launches": launches[k.name],
+        k.launches = 0
+    acquire.acquire_bench(*a_args)
+    probe_results = probes.run_probes(dev)
+    torch.cuda.synchronize()
+    for k in tuple(acquire.KERNELS.values()) + probes.KERNELS:
+        launches[k.name] = k.launches
+        require(k.launches > 0, f"{k.name} did not launch in its run")
+    for name, (ok, err) in probe_results.items():
+        require(ok, f"probe {name} failed (error {err})")
+        log(f"PASS {name}: error {err:.3g}")
+
+    rows = []
+    by_name = {k.name: k for k in KERNELS}
+    by_name["orient_desc_fast"] = orient_desc.KERNEL
+    for name, r in results.items():
+        k = by_name[name]
+        rows.append({"name": name, "route": "cuda", "source": k.source_path,
+                     "replaces": k.replaces, "launches": launches[name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                     "plain_ms": r["plain_ms"]})
+                     "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+                     "bound_by": r["bound"][1], "library_ms": r["library_ms"]})
+    require(len(rows) == len(KERNELS) + 1, f"{len(rows)} kernel rows for {len(KERNELS)} kernels")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -79,10 +79,11 @@ class SiftParams:
     the compaction kernel instead of plain PyTorch; both give the same
     indices.
 
-    Settings whose kernels are not ported yet raise ``NotImplementedError``
-    in ``extract_sift``: ``grad_mode="fast"`` / ``fast_gradients=True``, and
-    ``use_pallas=False`` on a CUDA tensor (the port has no non-kernel GPU
-    path).
+    ``grad_mode="fast"`` and ``fast_gradients=True`` (which overrides
+    ``grad_mode``) select the fused kernel's third sampler; the split path
+    ignores the sampler. ``use_pallas=False`` on a CUDA tensor raises
+    ``NotImplementedError`` in ``extract_sift`` (the port has no non-kernel
+    GPU path).
     """
 
     num_octaves: int = 5
@@ -105,8 +106,9 @@ class SiftParams:
     fast_gradients: bool = False
     # Descriptor gradient sampler of the fused orientation+descriptor
     # kernel: "exact" (4 bilinear taps per sample, the reference
-    # arithmetic) or "shift" (rotation-aligned gradient fields from
-    # fractional +-(cos a, sin a) shifts, sampled bilinearly).
+    # arithmetic), "shift" (rotation-aligned gradient fields from
+    # fractional +-(cos a, sin a) shifts, sampled bilinearly) or "fast"
+    # (unrotated central-difference fields, sampled, then rotated).
     grad_mode: str = "shift"
     refine_layout: str = "auto"
     use_pallas_compact: bool = False

@@ -18,7 +18,11 @@
 //      the first;
 //   4. for each orientation, one thread per point of the rotated 16x16
 //      grid: "shift" samples rotation-aligned gradient fields built from
-//      fractional +-(cos, sin) shifts, "exact" takes 4 bilinear taps;
+//      fractional +-(cos, sin) shifts, "exact" takes 4 bilinear taps,
+//      "fast" samples the unrotated central-difference fields of the staged
+//      patch (I[p][q+1] - I[p][q-1], I[p+1][q] - I[p-1][q]) with the shift
+//      mode's clip and rotates the two sums into the keypoint frame (the
+//      TPU kernel rounds these fields to bf16; here they stay float32);
 //   5. trilinear 4x4x8 binning (one thread per descriptor entry, samples in
 //      a fixed order), then L2 -> clamp 0.2 -> L2 by a fixed-shape tree.
 // No float atomics anywhere, so two runs are bit-identical. Arithmetic
@@ -43,7 +47,9 @@ using sift::tent;
 constexpr int THREADS = 256;
 constexpr int MAXP = 48, MAXPW = 64;
 
-template <bool SHIFT>
+enum Mode { EXACT = 0, SHIFT = 1, FAST = 2 };
+
+template <int MODE>
 __global__ void __launch_bounds__(THREADS)
 orient_desc_kernel(const float* __restrict__ img, int h, int w,
                    const float* __restrict__ xpos, const float* __restrict__ ypos,
@@ -178,7 +184,7 @@ orient_desc_kernel(const float* __restrict__ img, int h, int w,
         const float xs = lx0 + gx * (s12 * cosa) - gy * (s12 * sina) + 0.5f;
         const float ys = ly0 + gx * (s12 * sina) + gy * (s12 * cosa) + 0.5f;
         float dx, dy;
-        if (SHIFT) {
+        if (MODE == SHIFT) {
             float hc[3], hs[3];
             for (int j = 0; j < 3; ++j) {
                 hc[j] = fmaxf(1.0f - fabsf(cosa - (float)(j - 1)), 0.0f);
@@ -210,6 +216,25 @@ orient_desc_kernel(const float* __restrict__ img, int h, int w,
                 }
             dx = wr0 * (fxv[0][0] * wc0 + fxv[0][1] * wc1) + wr1 * (fxv[1][0] * wc0 + fxv[1][1] * wc1);
             dy = wr0 * (fyv[0][0] * wc0 + fyv[0][1] * wc1) + wr1 * (fyv[1][0] * wc0 + fyv[1][1] * wc1);
+        } else if (MODE == FAST) {
+            const float sx = fminf(fmaxf(xs - 0.5f, 1.0f), (float)PW - 2.0f);
+            const float sy = fminf(fmaxf(ys - 0.5f, 1.0f), (float)P - 2.0f);
+            const int p0 = (int)floorf(sy), q0 = (int)floorf(sx);
+            const float wr0 = tent(p0, sy), wr1 = tent(p0 + 1, sy);
+            const float wc0 = tent(q0, sx), wc1 = tent(q0 + 1, sx);
+            // Central differences at the four bilinear neighbours; p0 + 1 <= P - 1
+            // and q0 + 1 <= PW - 1, so every read lies in the staged patch.
+            float gxv[2][2], gyv[2][2];
+            for (int a = 0; a < 2; ++a)
+                for (int b = 0; b < 2; ++b) {
+                    const int p = p0 + a, q = q0 + b;
+                    gxv[a][b] = patch[p][q + 1] - patch[p][q - 1];
+                    gyv[a][b] = patch[p + 1][q] - patch[p - 1][q];
+                }
+            const float sgx = wr0 * (gxv[0][0] * wc0 + gxv[0][1] * wc1) + wr1 * (gxv[1][0] * wc0 + gxv[1][1] * wc1);
+            const float sgy = wr0 * (gyv[0][0] * wc0 + gyv[0][1] * wc1) + wr1 * (gyv[1][0] * wc0 + gyv[1][1] * wc1);
+            dx = cosa * sgx + sina * sgy;
+            dy = cosa * sgy - sina * sgx;
         } else {
             const float tx[4] = {cosa, -cosa, -sina, sina};
             const float ty[4] = {sina, -sina, cosa, -cosa};
@@ -235,15 +260,20 @@ orient_desc_kernel(const float* __restrict__ img, int h, int w,
 
 extern "C" int orient_and_describe(const float* img, int h, int w, const float* xpos,
                                    const float* ypos, const float* scale,
-                                   const uint8_t* live, int n, int shift,
+                                   const uint8_t* live, int n, int mode,
                                    float* desc1, float* desc2, float* ori1,
                                    float* ori2, uint8_t* has2, cudaStream_t stream) {
     if (n == 0) return 0;
-    if (shift)
-        orient_desc_kernel<true><<<n, THREADS, 0, stream>>>(
+    if (mode == SHIFT)
+        orient_desc_kernel<SHIFT><<<n, THREADS, 0, stream>>>(
+            img, h, w, xpos, ypos, scale, live, desc1, desc2, ori1, ori2, has2);
+    else if (mode == FAST)
+        orient_desc_kernel<FAST><<<n, THREADS, 0, stream>>>(
+            img, h, w, xpos, ypos, scale, live, desc1, desc2, ori1, ori2, has2);
+    else if (mode == EXACT)
+        orient_desc_kernel<EXACT><<<n, THREADS, 0, stream>>>(
             img, h, w, xpos, ypos, scale, live, desc1, desc2, ori1, ori2, has2);
     else
-        orient_desc_kernel<false><<<n, THREADS, 0, stream>>>(
-            img, h, w, xpos, ypos, scale, live, desc1, desc2, ori1, ori2, has2);
+        return (int)cudaErrorInvalidValue;
     return (int)cudaGetLastError();
 }

@@ -4,11 +4,15 @@ Each wrapper launches its kernel on CUDA tensors and takes the kernel's
 plain PyTorch version on CPU tensors; any other device raises.
 """
 
-from . import compact, descriptor, dog, match, orient, orient_desc, refine
+from . import (acquire, compact, descriptor, dog, match, orient, orient_desc, probes,
+               refine)
 
-# Every kernel, K1-K8.
-KERNELS = (dog.KERNEL, refine.KERNEL, orient_desc.KERNEL, match.KERNEL,
+# The library kernels, K1-K8.
+LIBRARY = (dog.KERNEL, refine.KERNEL, orient_desc.KERNEL, match.KERNEL,
            match.SWEEP_KERNEL, orient.KERNEL, descriptor.KERNEL, compact.KERNEL)
+# Every kernel: K1-K8, the four patch-acquisition launchers (P1) and the
+# eight capability probes (P2).
+KERNELS = LIBRARY + tuple(acquire.KERNELS.values()) + probes.KERNELS
 # The kernels each extraction flow launches, in pipeline order, with the
 # matcher: the fused path (the default, SiftParams(use_fused=True)) and the
 # split path (SiftParams(use_fused=False, use_pallas_compact=True)).

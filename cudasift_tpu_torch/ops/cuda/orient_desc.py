@@ -27,7 +27,8 @@ import torch
 from .. import descriptor, orient
 from ...utils.build import Kernel, check, ptr
 
-MODES = ("shift", "exact")
+# Descriptor samplers, by the kernel's mode argument.
+MODES = ("exact", "shift", "fast")
 
 KERNEL = Kernel(
     "orient_desc.cu", "orient_and_describe",
@@ -41,9 +42,6 @@ KERNEL = Kernel(
 
 
 def _check_mode(mode: str) -> None:
-    if mode == "fast":
-        raise NotImplementedError(
-            "grad_mode='fast' is not ported yet (ROADMAP.md, Queue 2: K3 'fast')")
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
 
@@ -91,6 +89,6 @@ def orient_and_describe(img: torch.Tensor, xpos: torch.Tensor, ypos: torch.Tenso
     ori2 = torch.empty((n,), dtype=torch.float32, device=dev)
     has2 = torch.empty((n,), dtype=torch.bool, device=dev)
     KERNEL(ptr(img), h, w, ptr(xpos), ptr(ypos), ptr(scale), ptr(live), n,
-           1 if mode == "shift" else 0, ptr(desc1), ptr(desc2), ptr(ori1),
+           MODES.index(mode), ptr(desc1), ptr(desc2), ptr(ori1),
            ptr(ori2), ptr(has2))
     return desc1, desc2, ori1, ori2, has2

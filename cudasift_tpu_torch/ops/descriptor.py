@@ -6,7 +6,7 @@ descriptor kernel (``ops/cuda/descriptor.py``).
 
 Geometry (cudaSiftD.cu:330-343): a 16x16 grid rotated by the keypoint
 orientation with spacing (12/16)*scale and the reference's +0.5 sample
-shift. Two gradient samplers:
+shift. Three gradient samplers:
 
 - ``"exact"`` -- 4 bilinear taps per sample at the rotated unit offsets
   +-(cos, sin) and +-(-sin, cos), the reference arithmetic;
@@ -14,7 +14,12 @@ shift. Two gradient samplers:
   ``Dx(q) = S(q; +(cos, sin)) - S(q; -(cos, sin))`` and
   ``Dy(q) = S(q; (-sin, cos)) - S(q; (sin, -cos))`` at integer pixels
   (S = bilinear sample at an offset), then sampled bilinearly at the grid
-  point. Equal to the exact taps convolved with a 2 px hat.
+  point. Equal to the exact taps convolved with a 2 px hat;
+- ``"fast"`` -- the unrotated central-difference fields
+  ``Gx(p, q) = I(p, q+1) - I(p, q-1)`` and ``Gy(p, q) = I(p+1, q) - I(p-1, q)``
+  sampled bilinearly at the grid point (the shift mode's clip), then rotated
+  into the keypoint frame: ``dx = cos*Gx + sin*Gy``, ``dy = cos*Gy - sin*Gx``.
+  Deviates from ``"exact"`` by O(h^2) curvature terms.
 
 Binning is trilinear into 4x4 cells x 8 angles with a Gaussian window,
 then L2 -> clamp 0.2 -> L2 (cudaSiftD.cu:347-409).
@@ -94,8 +99,23 @@ def sample_gradients(read, lx0, ly0, s12, ori_deg, rows, cols, mode: str):
             sy = torch.minimum(torch.clamp(ys + ty - 0.5, min=0.0), pmax)
             vals.append(bilinear(read, sy, sx))
         return vals[0] - vals[1], vals[2] - vals[3]
-    if mode != "shift":
-        raise ValueError(f"mode must be exact|shift, got {mode!r}")
+    if mode not in ("shift", "fast"):
+        raise ValueError(f"mode must be exact|shift|fast, got {mode!r}")
+
+    # Both field samplers keep off the patch's outer rows and columns, as the
+    # fused kernel's do (its fields wrap around there).
+    sx = torch.minimum(torch.clamp(xs - 0.5, min=1.0), qmax - 1.0)
+    sy = torch.minimum(torch.clamp(ys - 0.5, min=1.0), pmax - 1.0)
+    if mode == "fast":
+        def gx_field(p, q):
+            return read(p, q + 1) - read(p, q - 1)
+
+        def gy_field(p, q):
+            return read(p + 1, q) - read(p - 1, q)
+
+        sgx = bilinear(gx_field, sy, sx)
+        sgy = bilinear(gy_field, sy, sx)
+        return cosa * sgx + sina * sgy, cosa * sgy - sina * sgx
 
     hc = _hat(cosa)
     hs = _hat(sina)
@@ -113,8 +133,6 @@ def sample_gradients(read, lx0, ly0, s12, ori_deg, rows, cols, mode: str):
             return acc
         return sample
 
-    sx = torch.minimum(torch.clamp(xs - 0.5, min=1.0), qmax - 1.0)
-    sy = torch.minimum(torch.clamp(ys - 0.5, min=1.0), pmax - 1.0)
     return bilinear(field(wx), sy, sx), bilinear(field(wy), sy, sx)
 
 

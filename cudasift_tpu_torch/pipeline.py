@@ -38,18 +38,18 @@ import torch
 from .config import SiftParams
 from .ops import convolve, cuda
 from .ops.cuda.dog import dog_and_mask
-from .ops.cuda.orient_desc import orient_and_describe
+from .ops.cuda.orient_desc import MODES, orient_and_describe
 from .ops.cuda.refine import refine_candidates
 from .ops.detect import compact_mask, rank_select
 from .ops.orient import histogram_peaks
-from .sift_data import SiftData
+from .sift_data import SiftData, resolve_device
 
 
 def _check_params(params: SiftParams, device: torch.device) -> None:
-    """Raise NotImplementedError for settings whose kernels the port lacks."""
-    if params.fast_gradients or params.grad_mode == "fast":
-        raise NotImplementedError(
-            "grad_mode='fast' is not ported yet (ROADMAP.md, Queue 2: K3 'fast')")
+    """Raise ValueError for an unknown sampler and NotImplementedError for a
+    setting the port has no path for."""
+    if params.grad_mode not in MODES:
+        raise ValueError(f"grad_mode must be one of {MODES}, got {params.grad_mode!r}")
     if device.type == "cuda" and not params.use_pallas:
         raise NotImplementedError(
             "use_pallas=False on a CUDA tensor: the port's GPU path is its kernels")
@@ -83,8 +83,11 @@ def _extract_octave(base: torch.Tensor, kernels: np.ndarray, params: SiftParams,
     cands = refine_candidates(dog, flat_idx, count, params.edge_limit,
                               params.lowest_scale_effective / subsampling)
     if params.use_fused:
-        fields, slot_valid = _fused_orient_describe(base, cands, params.grad_mode)
+        mode = "fast" if params.fast_gradients else params.grad_mode
+        fields, slot_valid = _fused_orient_describe(base, cands, mode)
     else:
+        # The split path's descriptors are always exact; it ignores the
+        # sampler, as the JAX package's split path does.
         fields, slot_valid = _split_orient_describe(base, cands, capacity)
     for k in ("xpos", "ypos", "scale"):
         fields[k] = fields[k] * subsampling
@@ -199,6 +202,11 @@ def _extract(image: torch.Tensor, params: SiftParams) -> SiftData:
 
 
 def _as_frames(images, device, ndim: int) -> torch.Tensor:
+    """``images`` as a float32 tensor: a tensor stays on its device unless
+    ``device`` is given; anything else goes to ``device``, the card when
+    None (``resolve_device``)."""
+    if device is not None or not isinstance(images, torch.Tensor):
+        device = resolve_device(device)
     t = torch.as_tensor(images, dtype=torch.float32, device=device)
     if t.ndim != ndim:
         what = "a 2-D grayscale image" if ndim == 2 else "(N, H, W) frames"
@@ -212,7 +220,9 @@ def extract_sift(image, params: SiftParams = SiftParams(),
 
     ``image``: (H, W) tensor or array-like, float32 grayscale (0..255
     typical). A tensor stays on its device unless ``device`` is given;
-    array-likes go to ``device`` (PyTorch's default, the CPU, when None).
+    array-likes go to ``device``, the CUDA card when None. Without a card
+    that raises: ``device="cpu"`` runs on the CPU (the kernels' plain
+    versions).
     """
     img = _as_frames(image, device, 2)
     _check_params(params, img.device)
@@ -222,7 +232,8 @@ def extract_sift(image, params: SiftParams = SiftParams(),
 def extract_sift_throughput(images, params: SiftParams = SiftParams(),
                             device: torch.device | str | None = None) -> SiftData:
     """Extract SIFT from N same-shaped frames, one after another; fields
-    carry a leading (N,) batch axis (``num_pts`` has shape (N,))."""
+    carry a leading (N,) batch axis (``num_pts`` has shape (N,)). Devices as
+    in ``extract_sift``."""
     frames = _as_frames(images, device, 3)
     _check_params(params, frames.device)
     outs = [_extract(frames[i], params) for i in range(frames.shape[0])]

@@ -51,8 +51,22 @@ class SiftData:
         return torch.arange(self.max_pts, device=self.device) < self.num_pts
 
 
-def init_sift_data(num: int = 1024, device: torch.device | str = "cpu") -> SiftData:
-    """Allocate an empty keypoint set (InitSiftData, cudaSiftH.cu:234-249)."""
+def resolve_device(device: torch.device | str | None) -> torch.device:
+    """The device an entry point runs on: ``device``, or the CUDA card when
+    None. Raises when that is a CUDA device and no card is present; the CPU
+    is taken only when asked for (``device="cpu"``)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"no CUDA device is available for {dev}; pass device=\"cpu\" to run on the CPU")
+    return dev
+
+
+def init_sift_data(num: int = 1024, device: torch.device | str = "cuda") -> SiftData:
+    """Allocate an empty keypoint set (InitSiftData, cudaSiftH.cu:234-249)
+    on ``device``: the card unless the caller asks for the CPU."""
+    device = resolve_device(device)
+
     def z():
         return torch.zeros((num,), dtype=torch.float32, device=device)
 

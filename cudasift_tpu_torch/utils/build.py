@@ -77,11 +77,13 @@ class Kernel:
     ``launches`` rises by one for every successful launch and nowhere else;
     callers may reset it to 0. Calling the object builds the library on
     first use, launches on ``torch.cuda.current_stream()`` and raises if the
-    launcher returns a non-zero ``cudaError_t``.
+    launcher returns a non-zero ``cudaError_t``. ``name`` defaults to the
+    source's stem; a source with several launchers names each.
     """
 
     def __init__(self, source: str, symbol: str, argtypes: list,
-                 flags: tuple[str, ...] = (), replaces: str = ""):
+                 flags: tuple[str, ...] = (), replaces: str = "", name: str = ""):
+        self.name = name or Path(source).stem
         self.source = source
         self.symbol = symbol
         self.argtypes = argtypes
@@ -89,10 +91,6 @@ class Kernel:
         self.replaces = replaces
         self.launches = 0
         self._fn = None
-
-    @property
-    def name(self) -> str:
-        return Path(self.source).stem
 
     @property
     def source_path(self) -> str:

@@ -64,7 +64,7 @@ def test_sift_data_fields_and_round_trip():
     arrays = {name: np.asarray(getattr(jdata, name)) for name in jfields}
     tdata = sift_data_from_numpy(arrays)
     back = sift_data_to_numpy(tdata)
-    init = sift_data_to_numpy(ct.init_sift_data(64))
+    init = sift_data_to_numpy(ct.init_sift_data(64, device="cpu"))
     for name in jfields:
         np.testing.assert_array_equal(back[name], arrays[name])
         np.testing.assert_array_equal(init[name], arrays[name])

@@ -1,18 +1,24 @@
-"""The eight CUDA kernels (K1-K8) against their plain versions on the card,
-and the pipeline, fused and split, on the card against the CPU. Marked
-``gpu``: they skip without a CUDA device. On the card run them with
-``python -m pytest tests/test_torch_gpu.py -q --noconftest``: the conftest
-only configures jax, which these tests do not use."""
+"""The CUDA kernels (K1-K8 with K3's three samplers, the patch-acquisition
+kernels P1 and the probes P2) against their plain versions on the card, the
+pipeline, fused and split, on the card against the CPU, and the demo CLI on
+the card. Marked ``gpu``: they skip without a CUDA device. On the card run
+them with ``python -m pytest tests/test_torch_gpu.py -q --noconftest``: the
+conftest only configures jax, which these tests do not use."""
+
+import json
 
 import numpy as np
 import pytest
 import torch
 
 import cudasift_tpu_torch as ct
+from cudasift_tpu_torch import cli
 from cudasift_tpu_torch.config import laplace_kernels
 from cudasift_tpu_torch.ops import convolve, detect
 from cudasift_tpu_torch.ops import match as match_plain
-from cudasift_tpu_torch.ops.cuda import compact, descriptor, dog, match, orient, orient_desc, refine
+from cudasift_tpu_torch.ops.cuda import (FUSED_PATH, acquire, compact, descriptor, dog, match,
+                                         orient, orient_desc, probes, refine)
+from cudasift_tpu_torch.utils import io, synth
 from cudasift_tpu_torch.utils.synth import make_test_image
 
 pytestmark = pytest.mark.gpu
@@ -51,7 +57,7 @@ def test_refine_kernel_matches_plain(cuda):
         torch.testing.assert_close(getattr(got, name), getattr(ref, name), rtol=3e-7, atol=0)
 
 
-@pytest.mark.parametrize("mode", ["shift", "exact"])
+@pytest.mark.parametrize("mode", ["shift", "exact", "fast"])
 def test_orient_desc_kernel_matches_plain(cuda, mode):
     img = octave(cuda)
     rng = np.random.default_rng(52)
@@ -92,7 +98,7 @@ def test_pipeline_on_card_matches_cpu(cuda):
     params = ct.SiftParams(num_octaves=3, thresh=2.0, max_pts=2048)
     on_gpu = ct.extract_sift(torch.as_tensor(img, device=cuda), params)
     again = ct.extract_sift(torch.as_tensor(img, device=cuda), params)
-    on_cpu = ct.extract_sift(img, params)
+    on_cpu = ct.extract_sift(img, params, device="cpu")
     n = int(on_cpu.num_pts)
     assert int(on_gpu.num_pts) == n and n > 30
     torch.testing.assert_close(on_gpu.xpos.cpu(), on_cpu.xpos, rtol=1e-5, atol=1e-4)
@@ -178,8 +184,69 @@ def test_split_pipeline_on_card_matches_cpu(cuda, use_pallas_compact):
     launched = {k.name: k.launches - c for k, c in counts.items()}
     assert launched["orient"] == launched["descriptor"] == 6 and launched["orient_desc"] == 0
     assert launched["compact"] == (6 if use_pallas_compact else 0)
-    on_cpu = ct.extract_sift(img, params)
+    on_cpu = ct.extract_sift(img, params, device="cpu")
     n = int(on_cpu.num_pts)
     assert int(on_gpu.num_pts) == n and n > 30
     torch.testing.assert_close(on_gpu.xpos.cpu(), on_cpu.xpos, rtol=1e-5, atol=1e-4)
     assert torch.equal(on_gpu.data, again.data)
+
+
+def test_acquire_kernels_match_plain(cuda):
+    img, oy, ox, rxy = acquire.bench_inputs(256, 200, 640, seed=59)
+    edge = (np.arange(64 * 300, dtype=np.float32).reshape(64, 300) % 97,
+            np.array([0, 8, 16, 60, -5, 0, 3, 8], np.int32),
+            np.array([0, 128, 44, 250, 0, -9, 7, 0], np.int32),
+            np.array([0, 7, 60, -3, 2, 9, 1, 55, 0, 127, 300, -1, 5, 200, 3, 250], np.int32))
+    for arrays in ((img, oy, ox, rxy), edge):
+        args = tuple(torch.as_tensor(a, device=cuda) for a in arrays)
+        for name, staged, roll in acquire.VARIANTS:
+            kern = acquire.KERNELS[(staged, roll)]
+            before = kern.launches
+            got = acquire.acquire(*args, staged=staged, roll=roll)
+            assert kern.launches == before + 1, name
+            ref = acquire.acquire_plain(*args, roll)
+            torch.testing.assert_close(got, ref, rtol=1e-5, atol=0, msg=name)
+            assert not got[:, 1:].any()
+
+
+def test_probe_kernels_pass_and_match_plain(cuda):
+    for p in probes.PROBES:
+        args = p.inputs(cuda)
+        before = p.kernel.launches
+        out = p.fn(*args)
+        assert p.kernel.launches == before + 1, p.name
+        ok, err = p.judge(out.cpu().numpy(), args)
+        assert ok, (p.name, err)
+        torch.testing.assert_close(out, p.plain(*args), rtol=0, atol=1e-3, msg=p.name)
+    assert all(ok for ok, _ in probes.run_probes(cuda).values())
+
+
+def test_fast_pipeline_on_card_matches_cpu(cuda):
+    img = make_test_image(192, 256, seed=60)
+    params = ct.SiftParams(num_octaves=3, thresh=2.0, max_pts=2048, fast_gradients=True)
+    before = orient_desc.KERNEL.launches
+    on_gpu = ct.extract_sift(img, params)                 # an array goes to the card
+    assert on_gpu.device.type == "cuda" and orient_desc.KERNEL.launches == before + 3
+    on_cpu = ct.extract_sift(img, params, device="cpu")
+    n = int(on_cpu.num_pts)
+    assert int(on_gpu.num_pts) == n and n > 30
+    torch.testing.assert_close(on_gpu.xpos.cpu(), on_cpu.xpos, rtol=1e-5, atol=1e-4)
+    row = (on_gpu.data.cpu() - on_cpu.data).abs().max(dim=1).values[:n]
+    assert float(row.median()) < 4e-3
+
+
+def test_cli_on_card(cuda, tmp_path, capsys):
+    h, w = 320, 480
+    a = synth.make_leaves_image(h, w, seed=0)
+    left, right = str(tmp_path / "l.pgm"), str(tmp_path / "r.pgm")
+    io.write_pgm(left, a)
+    io.write_pgm(right, synth.warp_image(a, synth.known_homography(h, w)))
+    out = str(tmp_path / "annotated.pgm")
+    before = {k: k.launches for k in FUSED_PATH}
+    assert cli.main(["--left", left, "--right", right, "--octaves", "3", "--max-pts", "2048",
+                     "--num-loops", "512", "--json", "--time", "--out", out]) == 0
+    assert all(k.launches > before[k] for k in FUSED_PATH)
+    metrics = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert metrics["num_pts1"] > 100 and metrics["overflow1"] == 0 and metrics["num_fit"] > 50
+    assert metrics["extract_ms"] > 0 and metrics["match_ms"] > 0
+    assert io.read_pgm(out).shape == (h, w)

@@ -16,8 +16,9 @@ from cudasift_tpu.ops.pallas.match import match_descriptors_pallas
 from cudasift_tpu.ops.pallas.refine import refine_candidates_pallas
 
 from cudasift_tpu_torch.ops import match as tmatch
-from cudasift_tpu_torch.ops.cuda import (FUSED_PATH, KERNELS, SPLIT_PATH, compact, descriptor,
-                                         dog, match, orient, orient_desc, refine)
+from cudasift_tpu_torch.ops.cuda import (FUSED_PATH, KERNELS, LIBRARY, SPLIT_PATH, acquire,
+                                         compact, descriptor, dog, match, orient, orient_desc,
+                                         probes, refine)
 from cudasift_tpu_torch.utils.synth import make_test_image
 
 
@@ -138,10 +139,15 @@ def test_wrappers_reject_other_devices():
     with pytest.raises(ValueError):
         match.match_descriptors(torch.empty((8, 128), device=meta),
                                 torch.empty((8, 128), device=meta), 8, 8)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         orient_desc.orient_and_describe(t(np.zeros((8, 8), np.float32)), t(np.zeros(1, np.float32)),
                                         t(np.zeros(1, np.float32)), t(np.ones(1, np.float32)),
-                                        torch.ones(1, dtype=torch.bool), mode="fast")
+                                        torch.ones(1, dtype=torch.bool), mode="bogus")
+    ivec = torch.empty((8,), dtype=torch.int32, device=meta)
+    with pytest.raises(ValueError):
+        acquire.acquire(img, ivec, ivec, ivec)
+    with pytest.raises(ValueError):
+        probes.transpose(img)
     with pytest.raises(ValueError):
         compact.compact_mask(torch.empty((5, 32, 32), dtype=torch.bool, device=meta), 64)
     with pytest.raises(ValueError):
@@ -151,7 +157,13 @@ def test_wrappers_reject_other_devices():
     with pytest.raises(ValueError):
         match.match_descriptors(torch.empty((8, 128), device=meta),
                                 torch.empty((8, 128), device=meta), 8, 8, rescore_k=8)
-    assert [k.name for k in KERNELS] == ["dog", "refine", "orient_desc", "match",
+    assert [k.name for k in LIBRARY] == ["dog", "refine", "orient_desc", "match",
                                          "match_sweep", "orient", "descriptor", "compact"]
-    assert all(k.replaces.startswith("cudasift_tpu/ops/pallas/") for k in KERNELS)
-    assert set(FUSED_PATH) | set(SPLIT_PATH) == set(KERNELS) - {match.SWEEP_KERNEL}
+    assert all(k.replaces.startswith("cudasift_tpu/ops/pallas/") for k in LIBRARY)
+    assert set(FUSED_PATH) | set(SPLIT_PATH) == set(LIBRARY) - {match.SWEEP_KERNEL}
+    # Every kernel, the four acquisition launchers and eight probes with
+    # them, has a name of its own and the pallas_call line it replaces.
+    assert len(KERNELS) == 20 and len({k.name for k in KERNELS}) == 20
+    rest = KERNELS[len(LIBRARY):]
+    assert all(k.replaces.startswith(("benchmarks/acquire_bench.py:",
+                                      "benchmarks/mosaic_probe.py:")) for k in rest)

@@ -27,7 +27,7 @@ def test_extract_matches_jax(num_octaves, scale_up):
     kw = dict(num_octaves=num_octaves, thresh=2.0, max_pts=2048, scale_up=scale_up)
     jd = cs.extract_sift(img, cs.SiftParams(**kw))
     # The JAX package's CPU path samples descriptors exactly.
-    td = ct.extract_sift(img, ct.SiftParams(grad_mode="exact", **kw))
+    td = ct.extract_sift(img, ct.SiftParams(grad_mode="exact", **kw), device="cpu")
     nj, nt = int(jd.num_pts), int(td.num_pts)
     assert nt > 30 and abs(nt - nj) <= max(2, nj // 50)
     kj = keyset(jd.xpos, jd.ypos, jd.scale, nj)
@@ -54,7 +54,7 @@ def test_extract_matches_jax(num_octaves, scale_up):
 def test_extract_deterministic_and_finite():
     img = synth.make_test_image(H_IMG, W_IMG, seed=42)
     params = ct.SiftParams(num_octaves=3, thresh=2.0, max_pts=1024)
-    a = ct.extract_sift(img, params)
+    a = ct.extract_sift(img, params, device="cpu")
     b = ct.extract_sift(torch.as_tensor(img), params)
     for name in ct.SiftData.__dataclass_fields__:
         assert torch.equal(getattr(a, name), getattr(b, name)), name
@@ -62,7 +62,7 @@ def test_extract_deterministic_and_finite():
     assert n > 30 and int(a.overflow) == 0
     assert bool(torch.isfinite(a.data[:n]).all())
     np.testing.assert_allclose(a.data[:n].norm(dim=1).numpy(), 1.0, atol=1e-5)
-    batch = ct.extract_sift_throughput(np.stack([img, img[::-1].copy()]), params)
+    batch = ct.extract_sift_throughput(np.stack([img, img[::-1].copy()]), params, device="cpu")
     assert batch.num_pts.shape == (2,) and int(batch.num_pts[0]) == n
     assert torch.equal(batch.data[0], a.data)
 
@@ -71,7 +71,7 @@ def test_overflow_and_max_pts_clamp_match_jax():
     img = np.random.default_rng(3).uniform(0, 255, (128, 160)).astype(np.float32)
     kw = dict(num_octaves=1, thresh=0.5, max_pts=128, min_candidates=128)
     jd = cs.extract_sift(img, cs.SiftParams(**kw))
-    td = ct.extract_sift(img, ct.SiftParams(**kw))
+    td = ct.extract_sift(img, ct.SiftParams(**kw), device="cpu")
     assert int(td.num_pts) == int(jd.num_pts) == 128        # saturated
     # ... and says so. The count includes second-orientation duplicates,
     # whose peaks the fused kernel's orientation grid may place on the other
@@ -81,8 +81,8 @@ def test_overflow_and_max_pts_clamp_match_jax():
     # Global clamp only: per-octave slots suffice, max_pts does not.
     img = synth.make_test_image(128, 160, seed=43)
     kw = dict(num_octaves=2, thresh=2.0, max_pts=64)
-    big = ct.extract_sift(img, ct.SiftParams(**dict(kw, max_pts=4096)))
-    small = ct.extract_sift(img, ct.SiftParams(**kw))
+    big = ct.extract_sift(img, ct.SiftParams(**dict(kw, max_pts=4096)), device="cpu")
+    small = ct.extract_sift(img, ct.SiftParams(**kw), device="cpu")
     assert int(big.overflow) == 0 and int(big.num_pts) > 64
     assert int(small.num_pts) == 64
     assert int(small.overflow) == int(big.num_pts) - 64
@@ -90,20 +90,44 @@ def test_overflow_and_max_pts_clamp_match_jax():
 
 
 def test_unported_settings_raise():
+    """Every sampler and path is ported: the fast settings, the split path
+    and the compaction kernel run; only an unknown sampler and malformed
+    frames raise."""
     img = np.zeros((32, 32), np.float32)
     for kw in ({"grad_mode": "fast"}, {"fast_gradients": True},
-               {"grad_mode": "fast", "use_fused": False}):
-        with pytest.raises(NotImplementedError):
-            ct.extract_sift(img, ct.SiftParams(**kw))
-    # The split path and the compaction kernel are ported.
-    for kw in ({"use_fused": False}, {"use_pallas_compact": True}):
-        assert int(ct.extract_sift(img, ct.SiftParams(num_octaves=2, **kw)).num_pts) == 0
+               {"grad_mode": "fast", "use_fused": False},
+               {"use_fused": False}, {"use_pallas_compact": True}):
+        d = ct.extract_sift(img, ct.SiftParams(num_octaves=2, **kw), device="cpu")
+        assert int(d.num_pts) == 0
     with pytest.raises(ValueError):
-        ct.extract_sift(np.zeros((2, 32, 32), np.float32))
+        ct.extract_sift(img, ct.SiftParams(grad_mode="bogus"), device="cpu")
     with pytest.raises(ValueError):
-        ct.extract_sift_throughput(img)
-    flat = ct.extract_sift(np.full((64, 64), 7.0, np.float32), ct.SiftParams(num_octaves=2))
+        ct.extract_sift(np.zeros((2, 32, 32), np.float32), device="cpu")
+    with pytest.raises(ValueError):
+        ct.extract_sift_throughput(img, device="cpu")
+    flat = ct.extract_sift(np.full((64, 64), 7.0, np.float32), ct.SiftParams(num_octaves=2),
+                           device="cpu")
     assert int(flat.num_pts) == 0 and bool(torch.isfinite(flat.data).all())
+
+
+def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
+    """Array-likes go to the card by default; with no card that raises,
+    naming device="cpu", and nothing runs on the CPU. A tensor stays where
+    the caller put it."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    img = synth.make_test_image(64, 96, seed=44)
+    params = ct.SiftParams(num_octaves=2)
+    for call in (lambda: ct.extract_sift(img, params),
+                 lambda: ct.extract_sift_throughput(img[None], params),
+                 lambda: ct.extract_sift(torch.as_tensor(img), params, device="cuda"),
+                 lambda: ct.init_sift_data(16)):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            call()
+    on_cpu = ct.extract_sift(torch.as_tensor(img), params)
+    assert on_cpu.device.type == "cpu"
+    asked = ct.extract_sift(img, params, device="cpu")
+    assert torch.equal(asked.data, on_cpu.data)
+    assert ct.init_sift_data(16, device="cpu").device.type == "cpu"
 
 
 def test_pair_flow_recovers_known_homography():
@@ -111,8 +135,8 @@ def test_pair_flow_recovers_known_homography():
     hm = synth.known_homography(H_IMG, W_IMG)
     img_b = synth.warp_image(img_a, hm)
     params = ct.SiftParams(num_octaves=3, thresh=2.0, max_pts=2048)
-    da = ct.extract_sift(img_a, params)
-    db = ct.extract_sift(img_b, params)
+    da = ct.extract_sift(img_a, params, device="cpu")
+    db = ct.extract_sift(img_b, params, device="cpu")
     m = ct.match_sift_data(da, db)
     n = int(da.num_pts)
     assert (m.match[:n] >= 0).all() and (m.match[n:] == -1).all()
@@ -124,7 +148,7 @@ def test_pair_flow_recovers_known_homography():
     assert int(nm) > 50 and int(nfit) > 50
     assert synth.corner_error(h2.numpy(), hm, H_IMG, W_IMG) < 1.0
     # An empty set through match and RANSAC: identity, no matches.
-    empty = ct.init_sift_data(256)
+    empty = ct.init_sift_data(256, device="cpu")
     e = ct.match_sift_data(empty, db)
     h, nm = ct.find_homography(e, gen, num_loops=64)
     np.testing.assert_array_equal(h.numpy(), np.eye(3, dtype=np.float32))

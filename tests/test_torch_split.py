@@ -129,7 +129,8 @@ def test_split_pipeline_matches_jax(num_octaves, use_pallas_compact):
     kw = dict(num_octaves=num_octaves, thresh=2.0, max_pts=2048)
     jd = cs.extract_sift(img, cs.SiftParams(**kw))
     td = ct.extract_sift(img, ct.SiftParams(use_fused=False,
-                                            use_pallas_compact=use_pallas_compact, **kw))
+                                            use_pallas_compact=use_pallas_compact, **kw),
+                         device="cpu")
     nj, nt = int(jd.num_pts), int(td.num_pts)
     assert nt > 30 and abs(nt - nj) <= max(2, nj // 50)
     kj, kt = keyset(jd, nj), keyset(td, nt)
@@ -152,10 +153,11 @@ def test_split_pipeline_matches_jax(num_octaves, use_pallas_compact):
     # The compaction kernel's plain version gives the same point set, and
     # the fused path with exact descriptors nearly the same one.
     other = ct.extract_sift(img, ct.SiftParams(use_fused=False,
-                                               use_pallas_compact=not use_pallas_compact, **kw))
+                                               use_pallas_compact=not use_pallas_compact, **kw),
+                            device="cpu")
     for name in ct.SiftData.__dataclass_fields__:
         assert torch.equal(getattr(other, name), getattr(td, name)), name
-    fused = ct.extract_sift(img, ct.SiftParams(grad_mode="exact", **kw))
+    fused = ct.extract_sift(img, ct.SiftParams(grad_mode="exact", **kw), device="cpu")
     kf = keyset(fused, int(fused.num_pts))
     assert len(kf & kt) / max(len(kf), len(kt)) >= 0.98
 
@@ -170,8 +172,8 @@ def test_split_flow_on_leaves_pair_recovers_homography():
     img_b = synth.warp_image(img_a, hm)
     params = ct.SiftParams(num_octaves=3, thresh=3.0, max_pts=2048, use_fused=False,
                            use_pallas_compact=True)
-    da = ct.extract_sift(img_a, params)
-    db = ct.extract_sift(img_b, params)
+    da = ct.extract_sift(img_a, params, device="cpu")
+    db = ct.extract_sift(img_b, params, device="cpu")
     assert int(da.overflow) == int(db.overflow) == 0
     m = ct.match_sift_data(da, db)
     n = int(da.num_pts)
