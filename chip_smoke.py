@@ -8,10 +8,11 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    nvcc per source, all at once) and the C++ host codec (g++).
 3. Kernels: each kernel against its plain PyTorch version on the card, at
    the shapes of the main path on a 1920x1080 frame (the matchers at
-   4096 x 4096), with the stated tolerances, both timed with CUDA events,
-   beside the least time the card could take (``bound_ms``) and, where one
-   PyTorch call computes the same function, that call's time
-   (``library_ms``; the port never calls it). K3 in its three samplers;
+   4096 x 4096), with the stated tolerances, both timed with CUDA events
+   (the matchers also over 100 calls back to back), beside the least time
+   the card could take (``bound_ms``) and, where one PyTorch call computes
+   the same function, that call's time (``library_ms``; the port never
+   calls it). K3 in its three samplers;
    the patch-acquisition kernels (P1) on the benchmark's own inputs; the
    eight capability probes (P2).
 4. Main path, fused: the reference demo flow on two synthetic 1920x1080
@@ -25,9 +26,11 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    corner error recorded but not gated (too few matches pass its ratio
    test); then on a dead-leaves pair (``synth.make_leaves_image``, whose
    ratio test has margin) the fused flow, the fused flow with the ``fast``
-   sampler and the split flow, each with the same gates; then the hybrid
-   matcher on the split flow's descriptor sets against the exact one, the
-   compaction kernel on and off (bit-identical), and split against fused.
+   sampler and the split flow, each with the same gates; then the matcher
+   (K4) against its plain version and both matchers timed on the fused
+   leaves flow's 32768-slot sets, the hybrid matcher on the split flow's
+   descriptor sets against the exact one, the compaction kernel on and off
+   (bit-identical), and split against fused.
 4c. The demo CLI (``cudasift_tpu_torch.cli``) on the card, in-process, on
    the dead-leaves pair written as PGM files; then the patch-acquisition
    benchmark and the probe runner, each with the counters at 0.
@@ -59,7 +62,7 @@ CLI_MIN_FIT = 6500
 # Published peaks of one NVIDIA H100 SXM at its full 700 W limit: device
 # memory bytes/s, and dense operations/s by type.
 HBM_BYTES_S = 3.35e12
-PEAK_OPS_S = {"f32": 67e12, "bf16": 989e12}
+PEAK_OPS_S = {"f32": 67e12, "tf32": 495e12, "bf16": 989e12}
 
 
 def bound(nbytes: float, ops: float, kind: str = "f32") -> tuple[float, str]:
@@ -109,6 +112,19 @@ def bf16_flip_case(np):
     return np.stack([q] * 8), d2
 
 
+def near_ties(a, b, got, ref):
+    """Rows where two matchers picked different columns of ``b`` for rows
+    of ``a`` (float64): their count and the largest difference between the
+    float64 scores of the two picks (0 when none differ)."""
+    rows = (got != ref).nonzero()[:, 0]
+    if len(rows) == 0:
+        return 0, 0.0
+    q = a[rows]
+    s_got = (q * b[got[rows].long()]).sum(dim=1)
+    s_ref = (q * b[ref[rows].long()]).sum(dim=1)
+    return len(rows), float((s_got - s_ref).abs().max())
+
+
 def main() -> int:
     import torch
 
@@ -136,7 +152,7 @@ def main() -> int:
     from cudasift_tpu_torch.utils import native, synth
     from cudasift_tpu_torch.utils.build import build
     from cudasift_tpu_torch.utils.io import read_pgm, write_pgm
-    from cudasift_tpu_torch.utils.timers import time_ms
+    from cudasift_tpu_torch.utils.timers import time_ms, time_ms_loop
 
     dev = torch.device("cuda", 0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -291,8 +307,9 @@ def main() -> int:
     results["orient_desc"] = check_k3("shift")
     results["orient_desc_fast"] = check_k3("fast")
 
-    # K4 at 4096 x 4096 with an n2 mask. Tolerance: indices equal, scores
-    # at rtol 1e-5.
+    # K4 at 4096 x 4096 with an n2 mask. Tolerance: indices equal on every
+    # row, scores at rtol 1e-5 / atol 1e-6 (3xTF32 keeps float32 fidelity;
+    # the closest best-second gap of these rows is 7.3e-7 in float64).
     rng = np.random.default_rng(SEED)
     d1 = rng.standard_normal((4096, 128)).astype(np.float32)
     d2 = rng.standard_normal((4096, 128)).astype(np.float32)
@@ -300,6 +317,7 @@ def main() -> int:
     d2 /= np.linalg.norm(d2, axis=1, keepdims=True)
     d1 = torch.as_tensor(d1, device=dev)
     d2 = torch.as_tensor(d2, device=dev)
+    n1 = torch.tensor(4096, dtype=torch.int32, device=dev)
     n2 = torch.tensor(4001, dtype=torch.int32, device=dev)
     ks, ka, ki = match.match_descriptors(d1, d2, 4096, n2)
     ps, pa, pi = match_plain.match_descriptors(d1, d2, 4096, n2)
@@ -308,17 +326,38 @@ def main() -> int:
     require(torch.allclose(ks, ps, rtol=1e-5, atol=1e-6), "K4 scores differ")
     k4_err = float((ks - ps).abs().max())
     log(f"K4: 4096 x 4096 (n2 4001), indices equal, score max abs err {k4_err:.3g}")
-    # Bound: both sets in, three (N1,) outputs; 4096 x 4001 x 128
-    # multiply-adds in float32 on the CUDA cores. Library: torch.mm and
-    # torch.topk(k=2), two calls (no single call computes a top-2 match).
+    # Bound: both sets in, three (N1,) outputs; three TF32 products of
+    # 4096 x 4001 x 128 multiply-adds on the tensor cores (bound_f32_ms:
+    # one float32 product on the CUDA cores, the bound of the kernel before
+    # the tensor cores). Library: torch.mm and torch.topk(k=2), two calls (no
+    # single call computes a top-2 match). Times: the median single call
+    # (ms) and 100 calls back to back (loop_ms), with the counts on the card
+    # so that no call waits for the host.
     top2 = lambda a, b, n: torch.topk(torch.mm(a, b[:n].t()), 2, dim=1)  # noqa: E731
-    match_bound = bound(2 * 4096 * 128 * 4 + 3 * 4096 * 4, 2.0 * 4096 * 4001 * 128)
+    match_bytes = 2 * 4096 * 128 * 4 + 3 * 4096 * 4
+    match_ops = 2.0 * 4096 * 4001 * 128
     results["match"] = dict(
         max_abs_err=k4_err,
         ms=time_ms(match.match_descriptors, d1, d2, 4096, n2),
+        loop_ms=time_ms_loop(match.match_descriptors, d1, d2, n1, n2, n=100),
         plain_ms=time_ms(match_plain.match_descriptors, d1, d2, 4096, n2),
-        bound=match_bound,
-        library_ms=time_ms(top2, d1, d2, 4001))
+        bound=bound(match_bytes, 3 * match_ops, "tf32"),
+        bound_f32_ms=bound(match_bytes, match_ops)[0],
+        library_ms=time_ms(top2, d1, d2, 4001),
+        library_loop_ms=time_ms_loop(top2, d1, d2, 4001, n=100))
+    # The bfloat16 tier (use_bf16) against its plain version: scores at
+    # rtol 1e-5 / atol 1e-6; indices equal but at near-ties of the rounded
+    # inputs (float64 scores of the two picks within 1e-6).
+    bs_, _, bi_ = match.match_descriptors(d1, d2, 4096, n2, use_bf16=True)
+    ps_, _, pi_ = match_plain.match_descriptors(d1, d2, 4096, n2, use_bf16=True)
+    require(torch.allclose(bs_, ps_, rtol=1e-5, atol=1e-6), "K4 bf16 tier scores differ")
+    rd1, rd2 = (t.to(torch.bfloat16).double() for t in (d1, d2))
+    nflip, flip_gap = near_ties(rd1, rd2, bi_, pi_)
+    require(flip_gap <= 1e-6, f"K4 bf16 tier picks differ beyond a near-tie: {flip_gap}")
+    log(f"K4 use_bf16: 4096 x 4096 (n2 4001), {nflip} indices differ at near-ties "
+        f"(gap <= {flip_gap:.3g}), score max abs err {float((bs_ - ps_).abs().max()):.3g}, "
+        f"{time_ms_loop(match.match_descriptors, d1, d2, n1, n2, True, n=100):.4f} ms per "
+        f"call over 100")
 
     # K8 on the octave-0 and octave-2 masks of frame A and of the split
     # path's frame A (dead leaves, more candidates), with their capacities,
@@ -455,6 +494,8 @@ def main() -> int:
             "K5 sweep is not fooled by the bf16-flip case: its split rounds otherwise")
     require(int(match.match_descriptors(fd1, fd2, 8, 64, rescore_k=8)[2][0]) == 40,
             "K5 bf16-flip case lost the exact winner")
+    require(match.match_descriptors(fd1, fd2, 8, 64)[2].tolist() == [40] * 8,
+            "K4's 3xTF32 tier lost the bf16-flip case's exact winner")
     rng5 = np.random.default_rng(3)
     nd = 2048 + 300
     dd2 = rng5.standard_normal((nd, 128)).astype(np.float32)
@@ -465,7 +506,7 @@ def main() -> int:
     dup = match.match_descriptors(torch.as_tensor(np.stack([q] * 4), device=dev),
                                   torch.as_tensor(dd2, device=dev), 4, nd, rescore_k=8)
     require(dup[2].tolist() == [50] * 4, f"K5 duplicate tie-break gave {dup[2].tolist()}")
-    log("K5: bf16-flip case -> index 40, duplicate tie-break -> index 50")
+    log("K5: bf16-flip case -> index 40 (K4 too), duplicate tie-break -> index 50")
     # Bound: both sets in, the (N1, 32) candidate scores and columns out;
     # three bfloat16 products of 4096 x 4001 x 128 multiply-adds on the
     # tensor cores. Library: as K4's, torch.mm and torch.topk(k=2), the
@@ -474,10 +515,12 @@ def main() -> int:
     results["match_sweep"] = dict(
         max_abs_err=k5_err,
         ms=time_ms(match.sweep_candidates, d1, d2, 4096, n2),
+        loop_ms=time_ms_loop(match.sweep_candidates, d1, d2, n1, n2, n=100),
         plain_ms=time_ms(match_plain.sweep_candidates, d1, d2, 4096, n2),
         bound=bound(2 * 4096 * 128 * 4 + 4096 * 2 * nch * 8, 3 * 2.0 * 4096 * 4001 * 128,
                     "bf16"),
-        library_ms=time_ms(top2, d1, d2, 4001))
+        library_ms=time_ms(top2, d1, d2, 4001),
+        library_loop_ms=results["match"]["library_loop_ms"])
     log(f"K5 with its rescore (the whole rescore_k=8 tier): "
         f"{time_ms(match.match_descriptors, d1, d2, 4096, n2, False, 2048, 8):.4f} ms, "
         f"plain {time_ms(match_plain.match_descriptors_hybrid, d1, d2, 4096, n2, 8):.4f} ms")
@@ -627,7 +670,7 @@ def main() -> int:
     run_flow("split path, blocks", split, (img_a, img_b), SPLIT_PATH,
              absent=(orient_desc.KERNEL,), gate_homography=False)
     leaves = (leaf_a, leaf_b)
-    run_flow("fused path, leaves", params, leaves, FUSED_PATH)
+    la, lb, _ = run_flow("fused path, leaves", params, leaves, FUSED_PATH)
     # The fused path with K3's fast sampler, gated as the shift flow above.
     _, _, fast_launches = run_flow("fast path, leaves",
                                    dataclasses.replace(params, fast_gradients=True),
@@ -637,6 +680,39 @@ def main() -> int:
     for k in SPLIT_PATH:
         if k not in FUSED_PATH:
             launches[k.name] = split_launches[k.name]
+
+    # K4 and K5 at the main path's shape: the fused leaves flow's own sets,
+    # 32768 slots each. K4 against plain: scores at rtol 1e-5 / atol 1e-6,
+    # indices equal but at near-ties (float64 scores of the two picks within
+    # 1e-6: each side's float32 sums err by up to about 3e-7). Then both
+    # kernels and the library call timed over 50 calls back to back; bounds
+    # from the live rows (each kernel reads only those) and the outputs.
+    ln1, ln2 = int(la.num_pts), int(lb.num_pts)
+    lsets = (la.data, lb.data, la.num_pts, lb.num_pts)
+    ls, _, li = match.match_descriptors(*lsets)
+    ps, _, pi = match_plain.match_descriptors(*lsets)
+    require(torch.allclose(ls, ps, rtol=1e-5, atol=1e-6),
+            f"K4 main-path scores differ: max abs {float((ls - ps).abs().max())}")
+    nflip, flip_gap = near_ties(la.data.double(), lb.data.double(), li, pi)
+    require(flip_gap <= 1e-6, f"K4 main-path picks differ beyond a near-tie: {flip_gap}")
+    cap = la.data.shape[0]
+    live_bytes = (ln1 + ln2) * 128 * 4
+    live_ops = 3 * 2.0 * ln1 * ln2 * 128
+    results["match"]["leaves"] = dict(
+        loop_ms=time_ms_loop(match.match_descriptors, *lsets, n=50),
+        library_loop_ms=time_ms_loop(top2, la.data[:ln1], lb.data, ln2, n=50),
+        bound_ms=bound(live_bytes + 3 * cap * 4, live_ops, "tf32")[0])
+    results["match_sweep"]["leaves"] = dict(
+        loop_ms=time_ms_loop(match.sweep_candidates, *lsets, n=50),
+        library_loop_ms=results["match"]["leaves"]["library_loop_ms"],
+        bound_ms=bound(live_bytes + cap * 2 * (-(-cap // match_plain.SWEEP_CHUNK)) * 8,
+                       live_ops, "bf16")[0])
+    log(f"K4 at the main path's shape ({ln1} x {ln2} of {cap} slots): {nflip} indices differ "
+        f"at near-ties (gap <= {flip_gap:.3g}), score max abs err "
+        f"{float((ls - ps).abs().max()):.3g}; per call over 50: K4 "
+        f"{results['match']['leaves']['loop_ms']:.4f} ms, K5 sweep "
+        f"{results['match_sweep']['leaves']['loop_ms']:.4f} ms, torch.mm + torch.topk "
+        f"{results['match']['leaves']['library_loop_ms']:.4f} ms")
 
     # K5 on the split flow's own descriptor sets against K4, with the
     # agreement rule of phase 3.
@@ -755,9 +831,10 @@ def main() -> int:
         k = by_name[name]
         rows.append({"name": name, "route": "cuda", "source": k.source_path,
                      "replaces": k.replaces, "launches": launches[name],
-                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                     "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
-                     "bound_by": r["bound"][1], "library_ms": r["library_ms"]})
+                     "max_abs_err": r.pop("max_abs_err"), "ms": r.pop("ms"),
+                     "plain_ms": r.pop("plain_ms"), "bound_ms": r["bound"][0],
+                     "bound_by": r.pop("bound")[1], "library_ms": r.pop("library_ms"),
+                     **r})   # the matchers' N-launch times and main-path shape
     require(len(rows) == len(KERNELS) + 1, f"{len(rows)} kernel rows for {len(KERNELS)} kernels")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

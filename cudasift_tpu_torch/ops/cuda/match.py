@@ -1,21 +1,29 @@
 """K4 and K5 wrappers: the brute-force matcher with a fused running top-2,
-and the candidate sweep of its hybrid exact tier.
+and the candidate sweep of its hybrid exact tier, both on the tensor cores.
 
 K4 replaces the TPU kernel ``cudasift_tpu/ops/pallas/match.py``
 (``match_descriptors_pallas``, default tier). The CUDA kernel
-(``csrc/match.cu``) is bound by arithmetic: N1*N2*128 float32
-multiply-adds, computed by the kernel itself on the CUDA cores (no cuBLAS,
-no TF32), with the score matrix never written out. The second set's live
-count is read on the device, so no host sync is needed. Its plain version
-is ``ops.match.match_descriptors``, which CPU tensors take.
+(``csrc/match.cu``) computes every score in 3xTF32 on ``mma.sync`` (one
+bfloat16 product for ``use_bf16``), keeps a running top-2 per row and
+column range, and merges the ranges in a second small kernel; the score
+matrix is never written out, and no library GEMM is called. The wrapper
+allocates the per-range partials with ``torch.empty``. One call of the
+wrapper counts as one launch of ``KERNEL`` (the partial and the merge
+kernel together). Its plain version is ``ops.match.match_descriptors``,
+which CPU tensors take.
 
 K5 replaces the TPU kernel ``_sweep_candidates`` of the same file, reached
 by ``match_descriptors(..., rescore_k=k)``. The CUDA kernel
 (``csrc/match_sweep.cu``) scores every pair in the three-product bfloat16
-split on the CUDA cores and keeps each row's top two per 256-column chunk;
+split on ``mma.sync`` and keeps each row's top two per 256-column chunk;
 the float32 rescore of the top ``k`` candidates is plain PyTorch
 (``ops.match.exact_rescore``), as it is XLA in the JAX package. Its plain
 version is ``ops.match.sweep_candidates``, which CPU tensors take.
+
+Both kernels read the live counts on the device, so no host sync is needed
+when they are passed as 0-d int32 CUDA tensors; both sets must be
+contiguous (N, 128) float32 on 16-byte boundaries (the kernels copy rows
+with 16-byte ``cp.async``).
 """
 
 from __future__ import annotations
@@ -30,10 +38,12 @@ from ...utils.build import Kernel, check, count_tensor, ptr
 KERNEL = Kernel(
     "match.cu", "match_descriptors",
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-     ctypes.c_void_p],
+     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
     replaces="cudasift_tpu/ops/pallas/match.py:255",
 )
+# Columns of the second set per block of K4 (``SPLIT`` in csrc/match.cu).
+MATCH_SPLIT = 1024
 
 SWEEP_KERNEL = Kernel(
     "match_sweep.cu", "sweep_candidates",
@@ -49,6 +59,9 @@ def _check_sets(d1: torch.Tensor, d2: torch.Tensor, n1, n2):
     dev = d1.device
     check(d1, "d1", torch.float32, (d1.shape[0], 128), dev)
     check(d2, "d2", torch.float32, (d2.shape[0], 128), dev)
+    for name, d in (("d1", d1), ("d2", d2)):
+        if d.data_ptr() % 16:
+            raise ValueError(f"{name} does not start on a 16-byte boundary")
     return count_tensor(n1, "n1", dev), count_tensor(n2, "n2", dev)
 
 
@@ -85,10 +98,14 @@ def match_descriptors(d1: torch.Tensor, d2: torch.Tensor, n1, n2,
     n1_t, n2_t = _check_sets(d1, d2, n1, n2)
     dev = d1.device
     n1_cap, n2_cap = d1.shape[0], d2.shape[0]
+    splits = -(-n2_cap // MATCH_SPLIT)
+    # Scratch: each row's (best, second) and index per column range.
+    part_s = torch.empty((n1_cap, splits, 2), dtype=torch.float32, device=dev)
+    part_i = torch.empty((n1_cap, splits), dtype=torch.int32, device=dev)
     score = torch.empty((n1_cap,), dtype=torch.float32, device=dev)
     ambiguity = torch.empty((n1_cap,), dtype=torch.float32, device=dev)
     index = torch.empty((n1_cap,), dtype=torch.int32, device=dev)
     KERNEL(ptr(d1), ptr(d2), n1_cap, n2_cap, ptr(n1_t), ptr(n2_t),
-           1 if use_bf16 else 0,
+           1 if use_bf16 else 0, splits, ptr(part_s), ptr(part_i),
            ptr(score), ptr(ambiguity), ptr(index))
     return score, ambiguity, index

@@ -79,6 +79,20 @@ def split_bf16(a: torch.Tensor):
     return hi, lo
 
 
+def split_tf32(a: torch.Tensor):
+    """(big, small) float32 tensors holding TF32 values, ``big = tf32(a)``
+    and ``small = tf32(a - big)``, each rounded as the card's
+    ``cvt.rna.tf32.f32``: to nearest with ties away from zero, keeping 10
+    mantissa bits. The split of the matcher kernel's 3xTF32 products; the
+    tests use it to restate that arithmetic on the CPU."""
+    def rna(x):
+        bits = x.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    big = rna(a)
+    return big, rna(a - big)
+
+
 def sweep_candidates(d1: torch.Tensor, d2: torch.Tensor, n1, n2):
     """Candidate sweep of the hybrid matcher (plain version of
     ``ops/cuda/match.py:sweep_candidates``).

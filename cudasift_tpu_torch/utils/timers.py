@@ -1,6 +1,7 @@
 """Timing (the analogue of TimerGPU and TimerCPU, cudautils.h:61-107):
-``time_ms``, device time from CUDA events; ``time_fn``, the wall time of a
-call on either device, as the JAX package's ``utils.timers.time_fn``."""
+``time_ms``, device time of single calls from CUDA events; ``time_ms_loop``,
+device time per call of many calls back to back; ``time_fn``, the wall time
+of a call on either device, as the JAX package's ``utils.timers.time_fn``."""
 
 from __future__ import annotations
 
@@ -27,6 +28,30 @@ def time_ms(fn, *args, iters: int = 20, warmup: int = 3) -> float:
     torch.cuda.synchronize()
     times = sorted(s.elapsed_time(e) for s, e in events)
     return times[len(times) // 2]
+
+
+def time_ms_loop(fn, *args, n: int = 50, warmup: int = 3) -> float:
+    """Device time (ms) per call of ``fn(*args)``: one pair of CUDA events
+    around ``n`` back-to-back calls, divided by ``n``. While the host
+    enqueues faster than the card runs, the calls queue up and the host's
+    per-call dispatch is hidden; a call that waits for the host (a count
+    copied from a Python int) still pays it, so pass counts as tensors on
+    the card."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("time_ms_loop measures CUDA work; no CUDA device is available")
+    if n < 1:
+        raise ValueError(f"n must be at least 1, got {n}")
+    for _ in range(warmup):
+        fn(*args)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(n):
+        fn(*args)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
 
 
 def _sync() -> None:

@@ -78,19 +78,47 @@ def test_orient_desc_kernel_matches_plain(cuda, mode):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+def flip_case(cuda):
+    """The JAX package's bfloat16 near-tie (tests/test_pallas.py): row 40
+    wins in exact arithmetic, row 20 in the bfloat16x3 split."""
+    q = np.full(128, 1.001, np.float32)
+
+    def exact64(x):
+        return float(q.astype(np.float64) @ x.astype(np.float64))
+
+    cand_a = np.full(128, 1.0048125, np.float32)
+    cand_a[:30] = np.float32(0.997)
+    cand_b = np.full(128, 1.003, np.float32)
+    diff = exact64(cand_a) - exact64(cand_b)
+    cand_b[:100] += np.float32((diff + 1e-4) / 1.001 / 100)
+    d2 = np.random.default_rng(7).standard_normal((64, 128)).astype(np.float32) * 0.01
+    d2[20] = cand_a
+    d2[40] = cand_b
+    return (torch.as_tensor(np.stack([q] * 8), device=cuda), torch.as_tensor(d2, device=cuda))
+
+
 @pytest.mark.parametrize("use_bf16", [False, True])
 def test_match_kernel_matches_plain(cuda, use_bf16):
+    # Capacities that are whole multiples of neither the kernel's 64-row
+    # blocks nor its 1024-column ranges; n2 ending inside a range and a
+    # tile, at a range's end, at 0; n1 at 0.
     g = torch.Generator(device=cuda).manual_seed(53)
     d1 = torch.nn.functional.normalize(torch.randn(700, 128, device=cuda, generator=g), dim=1)
-    d2 = torch.nn.functional.normalize(torch.randn(900, 128, device=cuda, generator=g), dim=1)
+    d2 = torch.nn.functional.normalize(torch.randn(2500, 128, device=cuda, generator=g), dim=1)
     d2[[11, 40]] = d1[3]                          # a tie: lowest index wins
-    for n1, n2 in ((700, 900), (650, 601), (700, 0)):
+    for n1, n2 in ((700, 2500), (650, 601), (700, 1100), (633, 2048), (700, 0), (0, 2500)):
+        before = match.KERNEL.launches
         got = match.match_descriptors(d1, d2, n1, n2, use_bf16=use_bf16)
+        assert match.KERNEL.launches == before + 1
         ref = match_plain.match_descriptors(d1, d2, n1, n2, use_bf16=use_bf16)
-        assert torch.equal(got[2], ref[2])
+        assert torch.equal(got[2], ref[2]), (n1, n2)
         torch.testing.assert_close(got[0], ref[0], rtol=1e-5, atol=1e-6)
         torch.testing.assert_close(got[1], ref[1], rtol=1e-4, atol=1e-5)
-    assert int(match.match_descriptors(d1, d2, 700, 900)[2][3]) == 11
+        assert not got[0][n1:].any() and not got[2][n1:].any()
+    assert int(match.match_descriptors(d1, d2, 700, 900, use_bf16=use_bf16)[2][3]) == 11
+    if not use_bf16:      # the exact tier keeps the near-tie's exact winner
+        fd1, fd2 = flip_case(cuda)
+        assert match.match_descriptors(fd1, fd2, 8, 64)[2].tolist() == [40] * 8
 
 
 def test_pipeline_on_card_matches_cpu(cuda):
@@ -152,24 +180,32 @@ def test_descriptor_kernel_matches_plain(cuda):
 
 
 def test_sweep_kernel_matches_plain(cuda):
+    # 300 rows (not a multiple of 64), 2500 columns: 10 chunks in three
+    # 1024-column ranges, the last one short; n2 ending inside a chunk and
+    # a range, at 1 and at 0; n1 at 0.
     g = torch.Generator(device=cuda).manual_seed(57)
     d1 = torch.nn.functional.normalize(torch.randn(300, 128, device=cuda, generator=g), dim=1)
     d2 = torch.nn.functional.normalize(torch.randn(2500, 128, device=cuda, generator=g), dim=1)
     d2[[40, 2100]] = d1[5]                     # a tie across chunks: lowest index wins
-    for n1, n2 in ((300, 2500), (270, 1901), (300, 1)):
+    for n1, n2 in ((300, 2500), (270, 1901), (257, 1100), (300, 1), (300, 0), (0, 2500)):
         before = match.SWEEP_KERNEL.launches
         got = match.match_descriptors(d1, d2, n1, n2, rescore_k=8)
         assert match.SWEEP_KERNEL.launches == before + 1
         ref = match_plain.match_descriptors_hybrid(d1, d2, n1, n2, 8)
-        assert torch.equal(got[2], ref[2])
+        assert torch.equal(got[2], ref[2]), (n1, n2)
         torch.testing.assert_close(got[0], ref[0], rtol=1e-6, atol=1e-7)
         exact = match.match_descriptors(d1, d2, n1, n2)
         assert torch.equal(got[2], exact[2])
         torch.testing.assert_close(got[0], exact[0], rtol=0, atol=1e-5)
-    cs, ci = match.sweep_candidates(d1, d2, 270, 1901)
-    ps, pi = match_plain.sweep_candidates(d1, d2, 270, 1901)
-    assert torch.equal(ci, pi)
-    torch.testing.assert_close(cs, ps, rtol=1e-6, atol=1e-7)
+    assert int(match.match_descriptors(d1, d2, 300, 2500, rescore_k=8)[2][5]) == 40
+    for n1, n2 in ((270, 1901), (300, 0), (0, 2500)):
+        cs, ci = match.sweep_candidates(d1, d2, n1, n2)
+        ps, pi = match_plain.sweep_candidates(d1, d2, n1, n2)
+        assert torch.equal(ci, pi), (n1, n2)
+        torch.testing.assert_close(cs, ps, rtol=1e-6, atol=1e-7)
+    fd1, fd2 = flip_case(cuda)                 # the sweep is fooled, the rescore is not
+    assert match.sweep_candidates(fd1, fd2, 8, 64)[1][0, :2].tolist() == [20, 40]
+    assert match.match_descriptors(fd1, fd2, 8, 64, rescore_k=8)[2].tolist() == [40] * 8
 
 
 @pytest.mark.parametrize("use_pallas_compact", [False, True])
