@@ -3,12 +3,15 @@
 Replaces the TPU kernel ``cudasift_tpu/ops/pallas/compact.py``
 (``compact_mask_pallas``), which ``SiftParams.use_pallas_compact`` selects
 for the candidate compaction of each octave. The CUDA kernel
-(``csrc/compact.cu``) is bound by device memory: it reads the (5, H, W)
-bool mask twice (per-segment counts, then ballot ranks) with one scan of
-the segment counts between, and writes the indices at their global ranks.
-No count is read back to the host and no atomic decides an order, so the
-result is that of its plain version, ``detect.compact_mask``, bit for bit;
-CPU tensors take the plain version.
+(``csrc/compact.cu``) is bound by device memory. It reads the mask as
+16-byte words in two launches: per-segment counts, then a write launch in
+which each block sums the counts before it and ranks its set entries by
+in-word, warp and block prefixes. No count is read back to the host, no
+atomic decides an order and no state outlives a call, so the result is that
+of its plain version, ``detect.compact_mask``, bit for bit, and the call can
+be captured in a CUDA graph. A mask view that does not start on a 16-byte
+boundary is taken as it is: the kernel reads its partial first and last
+words byte by byte. CPU tensors take the plain version.
 """
 
 from __future__ import annotations
@@ -27,7 +30,18 @@ KERNEL = Kernel(
     replaces="cudasift_tpu/ops/pallas/compact.py:204",
 )
 
-SEGMENT = 4096   # mask entries per block of the kernel
+# The kernel's shape (csrc/compact.cu): THREADS threads a block, each with
+# STEPS loads of VECTOR mask entries, so SEGMENT entries a block.
+THREADS = 256
+VECTOR = 16
+STEPS = 4
+SEGMENT = THREADS * STEPS * VECTOR
+
+
+def segments(n: int, misalign: int) -> int:
+    """Blocks of each launch for ``n`` entries starting ``misalign`` bytes
+    past a 16-byte boundary (at least one)."""
+    return max(-(-(n + misalign) // SEGMENT), 1)
 
 
 def compact_mask(mask: torch.Tensor, capacity: int):
@@ -40,10 +54,12 @@ def compact_mask(mask: torch.Tensor, capacity: int):
     if n >= 2 ** 31:
         raise ValueError(f"mask has {n} entries; int32 indices need fewer than 2**31")
     check(mask, "mask", torch.bool, tuple(mask.shape), mask.device)
-    dev = mask.device
-    seg = torch.empty((max(-(-n // SEGMENT), 1),), dtype=torch.int32, device=dev)
-    idx = torch.empty((capacity,), dtype=torch.int32, device=dev)
-    count = torch.empty((), dtype=torch.int32, device=dev)
-    total = torch.empty((), dtype=torch.int32, device=dev)
-    KERNEL(ptr(mask), n, int(capacity), ptr(seg), ptr(idx), ptr(count), ptr(total))
-    return idx, count, total
+    # One allocation, as a single call is dispatch-bound: the indices, count
+    # and total, then the per-segment counts the two launches pass on.
+    nseg = segments(n, mask.data_ptr() % VECTOR)
+    buf = torch.empty((capacity + 2 + nseg,), dtype=torch.int32, device=mask.device)
+    at = buf.data_ptr()
+    KERNEL(ptr(mask), n, int(capacity), ctypes.c_void_p(at + 4 * (capacity + 2)),
+           ctypes.c_void_p(at), ctypes.c_void_p(at + 4 * capacity),
+           ctypes.c_void_p(at + 4 * (capacity + 1)))
+    return buf[:capacity], buf[capacity], buf[capacity + 1]

@@ -1,12 +1,15 @@
 """K1 wrapper: blur + DoG + extrema mask for one octave base.
 
 Replaces the TPU kernel ``cudasift_tpu/ops/pallas/dog.py``
-(``dog_and_mask_pallas``). The CUDA kernel (``csrc/dog.cu``) is bound by
-device memory: one 4-byte read and 33 bytes of writes per pixel. It stages
-each 16x32 tile with its clamped halo in shared memory once and derives all
-8 blurs, 7 DoG planes and the mask from there. Its plain version is
-``convolve.blur_multi`` followed by ``detect.extrema_mask``, which CPU
-tensors take.
+(``dog_and_mask_pallas``). The CUDA kernel (``csrc/dog.cu``) stages each
+32x64 tile with its clamped halo in shared memory once and derives all 8
+blurs, 7 DoG planes and the mask from there: register-blocked separable
+passes with the taps in the constant bank, the DoG taken in registers, a
+separable 3x3x3 extremum test over two shared DoG planes, one barrier per
+scale. It must move 37 bytes a pixel; the blurs' unfused float
+instructions set its pace. It equals its plain version,
+``convolve.blur_multi`` followed by ``detect.extrema_mask``, bit for bit;
+CPU tensors take the plain version.
 """
 
 from __future__ import annotations

@@ -35,15 +35,25 @@ def octave(cuda, h=200, w=300):
     return convolve.low_pass(torch.as_tensor(make_test_image(h, w, seed=51), device=cuda), 1.0)
 
 
-def test_dog_kernel_matches_plain(cuda):
-    img = octave(cuda)
-    taps = laplace_kernels(1)[0]
+# The octave shapes of a 1920x1080 frame, then ragged ones: widths that are
+# not multiples of 4 (scalar stores) or of the 64-column tile, heights not
+# multiples of the 32-row tile, and frames smaller than a tile's halo.
+@pytest.mark.parametrize("h,w,o", [
+    (1080, 1920, 0), (540, 960, 1), (270, 480, 2), (135, 240, 3), (67, 120, 4),
+    (7, 9, 0), (67, 121, 1), (135, 241, 2), (5, 3, 0), (2, 40, 0), (200, 300, 0),
+])
+def test_dog_kernel_matches_plain(cuda, h, w, o):
+    img = octave(cuda, h, w)
+    taps = laplace_kernels(5)[o]
+    thresh = 3.0 if min(h, w) > 100 else 1.0
     before = dog.KERNEL.launches
-    got = dog.dog_and_mask(img, taps, 2.0, 10.0)
-    ref = dog.dog_and_mask_plain(img, taps, 2.0, 10.0)
+    got = dog.dog_and_mask(img, taps, thresh, 10.0)
+    ref = dog.dog_and_mask_plain(img, taps, thresh, 10.0)
     torch.cuda.synchronize()
     assert dog.KERNEL.launches == before + 1
     assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    if min(h, w) > 100:
+        assert int(ref[1].sum()) > 0
 
 
 def test_refine_kernel_matches_plain(cuda):
@@ -139,13 +149,49 @@ def test_compact_kernel_matches_plain(cuda):
     _, m = dog.dog_and_mask(octave(cuda), laplace_kernels(1)[0], 2.0, 10.0)
     g = torch.Generator(device=cuda).manual_seed(55)
     dense = torch.rand((5, 67, 251), device=cuda, generator=g) < 0.3
-    for mask, cap in ((m, 512), (m, 8), (dense, 4096), (dense, 70000),
-                      (torch.zeros((5, 9, 9), dtype=torch.bool, device=cuda), 128)):
+    big = torch.rand((3 * compact.SEGMENT,), device=cuda, generator=g) < 0.01
+    seg1 = compact.SEGMENT + 1
+    cases = [(m, 512), (m, 8), (dense, 4096), (dense, 70000),
+             (torch.zeros((5, 9, 9), dtype=torch.bool, device=cuda), 128),     # nothing set
+             (torch.ones((5, 67, 121), dtype=torch.bool, device=cuda), 50000),  # all set
+             (torch.ones((seg1,), dtype=torch.bool, device=cuda), 1024),        # saturating
+             (big[3:], 1024), (big[1:seg1 + 1], 512), (big[15:31], 64)]         # unaligned views
+    cases += [(big[:n], 64) for n in (1, 15, 16, 17, seg1)]
+    cases += [(torch.ones((n,), dtype=torch.bool, device=cuda), 64) for n in (1, 15, 16, 17)]
+    for mask, cap in cases:
         before = compact.KERNEL.launches
         got = compact.compact_mask(mask, cap)
         ref = detect.compact_mask(mask, cap, with_total=True)
         assert compact.KERNEL.launches == before + 1
-        assert all(torch.equal(a, b) for a, b in zip(got, ref))
+        assert all(torch.equal(a, b) for a, b in zip(got, ref)), (tuple(mask.shape), cap)
+    assert int(got[2]) == 17 and int(compact.compact_mask(cases[6][0], 1024)[2]) == seg1
+
+
+def test_compact_kernel_replays_in_a_graph(cuda):
+    """Captured once, replayed on new mask contents: no state outlives a
+    call, so every replay equals the plain version."""
+    mask = torch.zeros((5, 135, 241), dtype=torch.bool, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(64)
+    compact.compact_mask(mask, 2048)                     # build and load outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = compact.compact_mask(mask, 2048)
+    for density in (0.001, 0.2, 0.0, 0.01):
+        mask.copy_(torch.rand(mask.shape, device=cuda, generator=g) < density)
+        graph.replay()
+        ref = detect.compact_mask(mask, 2048, with_total=True)
+        assert all(torch.equal(a, b) for a, b in zip(out, ref)), density
+
+
+def test_graph_timer_on_the_card(cuda):
+    from cudasift_tpu_torch.utils.timers import time_ms_graph
+
+    img = octave(cuda)
+    taps = laplace_kernels(1)[0]
+    assert time_ms_graph(dog.dog_and_mask, img, taps, 2.0, 10.0, n=5) > 0
+    _, m = dog.dog_and_mask(img, taps, 2.0, 10.0)
+    assert time_ms_graph(compact.compact_mask, m, 512, n=5) > 0
 
 
 def front_packed(cuda, n=64, live=50):

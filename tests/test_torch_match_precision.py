@@ -153,6 +153,6 @@ def test_timers_refuse_without_a_card(monkeypatch):
     from cudasift_tpu_torch.utils import timers
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for timer in (timers.time_ms, timers.time_ms_loop):
+    for timer in (timers.time_ms, timers.time_ms_loop, timers.time_ms_graph):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             timer(lambda: None)
