@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""Time the K1 (``dog.cu``) and K8 (``compact.cu``) kernels of this checkout
-against those of another checkout, in turns, on one CUDA card.
+"""Time the K1 (``dog.cu``), K8 (``compact.cu``), K3 (``orient_desc.cu``) and
+K7 (``descriptor.cu``) kernels of this checkout against those of another
+checkout, in turns, on one CUDA card.
 
 Run from the repository root: ``python3 chip_ab.py OTHER_ROOT``, where
 ``OTHER_ROOT`` holds an older tree of the repository (for example the parent
 commit unpacked with ``git archive``). Both trees' kernels must keep the C
-entry points ``dog_and_mask`` and ``compact_mask`` with their present
-arguments. The other tree's sources are built from its ``csrc`` and bound
-with this tree's argument types; its K8 gets the scratch its own wrapper
-sized (one int per 4096 mask entries, which covers any later segment size).
+entry points ``dog_and_mask``, ``compact_mask``, ``orient_and_describe`` and
+``extract_descriptors`` with their present arguments. The other tree's
+sources are built from its ``csrc`` (with its own ``sift_common.cuh``) and
+bound with this tree's argument types; its K8 gets the scratch its own
+wrapper sized (one int per 4096 mask entries, which covers any later
+segment size).
 
 Inputs are those of ``chip_smoke.py``'s kernel table: K1 on the octave-0 base
 of the blocks frame A (1920x1080, ``SiftParams(5, 1.0, 3.0, 32768)``) and,
@@ -18,7 +21,18 @@ median single call; ``time_ms_loop``: 100 calls back to back;
 ``time_ms_graph``: 100 calls replayed from one CUDA graph) runs in the
 order other, this, this, other; both trees' outputs must equal the plain
 version. ``torch.nonzero_static`` and ``torch.nonzero`` are timed in the
-same run. Prints the card's name and power limit, then one JSON line.
+same run.
+
+K3 runs in its three samplers on the refined octave-0 candidates of the
+blocks frame A (the kernel table's shape: few live slots of 5120) and of the
+dead-leaves frame A (the main path's shape: a few thousand live), K7 on the
+dead-leaves frame's front-packed keypoints at their K6 orientations, as
+``chip_smoke.py`` feeds them. Both trees' outputs must lie within
+``chip_smoke.py``'s tolerances of the plain versions and repeat bit for bit;
+``time_ms_graph`` and ``time_ms_loop`` run in the same order of turns. Last,
+K3 ``shift`` graph-replayed on each of the dead-leaves frame's five octaves,
+summed over one flow's two extractions (``orient_desc_shift_flow``).
+Prints the card's name and power limit, then one JSON line.
 """
 
 from __future__ import annotations
@@ -52,7 +66,9 @@ def main(argv: list[str]) -> int:
 
     import cudasift_tpu_torch as ct
     from cudasift_tpu_torch.ops import convolve, detect
-    from cudasift_tpu_torch.ops.cuda import compact, dog
+    from cudasift_tpu_torch.ops import orient as orient_plain
+    from cudasift_tpu_torch.ops.cuda import compact, descriptor, dog, orient, orient_desc, refine
+    from cudasift_tpu_torch.pipeline import _compact
     from cudasift_tpu_torch.utils import synth
     from cudasift_tpu_torch.utils.build import Kernel, ptr
     from cudasift_tpu_torch.utils.timers import time_ms, time_ms_graph, time_ms_loop
@@ -68,7 +84,7 @@ def main(argv: list[str]) -> int:
         out = torch.empty((7, h, w), dtype=torch.float32, device=img.device)
         mask = torch.empty((5, h, w), dtype=torch.bool, device=img.device)
         table = taps.astype("float32")
-        other_k1(ptr(img), table.ctypes.data_as(ctypes.c_void_p), h, w, float(thresh),
+        other_k1(img.device, ptr(img), table.ctypes.data_as(ctypes.c_void_p), h, w, float(thresh),
                  float(edge_limit), ptr(out), ptr(mask))
         return out, mask
 
@@ -79,8 +95,36 @@ def main(argv: list[str]) -> int:
         idx = torch.empty((capacity,), dtype=torch.int32, device=dev)
         count = torch.empty((), dtype=torch.int32, device=dev)
         total = torch.empty((), dtype=torch.int32, device=dev)
-        other_k8(ptr(mask), n, int(capacity), ptr(seg), ptr(idx), ptr(count), ptr(total))
+        other_k8(dev, ptr(mask), n, int(capacity), ptr(seg), ptr(idx), ptr(count), ptr(total))
         return idx, count, total
+
+    other_k3 = Kernel(str(other_csrc / "orient_desc.cu"), orient_desc.KERNEL.symbol,
+                      orient_desc.KERNEL.argtypes, flags=orient_desc.KERNEL.flags,
+                      name="other_orient_desc")
+    other_k7 = Kernel(str(other_csrc / "descriptor.cu"), descriptor.KERNEL.symbol,
+                      descriptor.KERNEL.argtypes, flags=descriptor.KERNEL.flags,
+                      name="other_descriptor")
+
+    def other_orient_desc(img, xpos, ypos, scale, live, mode):
+        h, w = img.shape
+        n = xpos.shape[0]
+        desc1 = torch.empty((n, 128), dtype=torch.float32, device=img.device)
+        desc2 = torch.empty((n, 128), dtype=torch.float32, device=img.device)
+        ori1 = torch.empty((n,), dtype=torch.float32, device=img.device)
+        ori2 = torch.empty((n,), dtype=torch.float32, device=img.device)
+        has2 = torch.empty((n,), dtype=torch.bool, device=img.device)
+        other_k3(img.device, ptr(img), h, w, ptr(xpos), ptr(ypos), ptr(scale), ptr(live), n,
+                 orient_desc.MODES.index(mode), ptr(desc1), ptr(desc2), ptr(ori1), ptr(ori2),
+                 ptr(has2))
+        return desc1, desc2, ori1, ori2, has2
+
+    def other_descriptor(img, xpos, ypos, scale, orientation, count):
+        h, w = img.shape
+        n = xpos.shape[0]
+        desc = torch.empty((n, 128), dtype=torch.float32, device=img.device)
+        other_k7(img.device, ptr(img), h, w, ptr(xpos), ptr(ypos), ptr(scale),
+                 ptr(orientation), ptr(count), n, ptr(desc))
+        return desc
 
     dev = torch.device("cuda", 0)
     params = ct.SiftParams(num_octaves=5, init_blur=1.0, thresh=3.0, max_pts=32768)
@@ -128,6 +172,101 @@ def main(argv: list[str]) -> int:
                 row.setdefault(f"{side}_{tname}", []).append(timer(fn, args))
         out[kernel] = row
         print(f"{kernel}: {json.dumps(row)}", flush=True)
+    # K3 and K7. Octave-0 candidates of a base, refined as the pipeline
+    # refines them; the fused path hands K3 the validity mask, the split path
+    # front-packs for K7.
+    def candidates(octave_base, o=0):
+        cap_o = params.candidate_capacity(*octave_base.shape, o)
+        dog_o, mask_o = dog.dog_and_mask(octave_base, taps[o], params.thresh, params.edge_limit)
+        idx, count = detect.compact_mask(mask_o, cap_o)
+        c = refine.refine_candidates(dog_o, idx, count, params.edge_limit,
+                                     params.lowest_scale_effective / float(2 ** o))
+        return c, (octave_base, c.xpos, c.ypos, torch.where(c.valid, c.scale, 1.0), c.valid)
+
+    def check_k3(name, fn, args, mode):
+        got = fn(*args, mode)
+        ref = orient_desc.orient_and_describe_plain(*args, mode)
+        torch.cuda.synchronize()
+        live = args[4]
+        dori = (got[2] - ref[2]).abs()[live]
+        dori = torch.minimum(dori, 360.0 - dori)
+        same = live & ((got[2] - ref[2]).abs() < 1e-3)
+        rowerr = (got[0] - ref[0]).abs().max(dim=1).values[same]
+        norms = got[0][live].norm(dim=1)
+        ok = (float(dori.median()) < 0.2 and float((dori < 2.0).float().mean()) >= 0.9
+              and float((got[4] == ref[4])[live].float().mean()) >= 0.9
+              and int(same.sum()) >= 0.9 * int(live.sum())
+              and float(rowerr.median()) < 4e-3 and float(rowerr.max()) < 2e-2
+              and bool(((norms - 1.0).abs() < 1e-4).all())
+              and not got[0][~live].any() and not got[1][~(live & got[4])].any()
+              and all(torch.equal(a, b) for a, b in zip(got, fn(*args, mode))))
+        if not ok:
+            raise RuntimeError(f"chip_ab: {name} ({mode}) is outside the tolerances")
+        return float(rowerr.max())
+
+    def check_k7(name, fn, args):
+        got = fn(*args)
+        ref = descriptor.extract_descriptors_plain(*args)
+        torch.cuda.synchronize()
+        nl = int(args[5])
+        err = float((got - ref).abs().max())
+        if not (err <= 1e-5 and bool(((got[:nl].norm(dim=1) - 1.0).abs() < 1e-4).all())
+                and not got[nl:].any() and torch.equal(got, fn(*args))):
+            raise RuntimeError(f"chip_ab: {name} is outside the tolerances (max abs {err})")
+        return err
+
+    _, k3_blocks = candidates(base)
+    lc, k3_leaves = candidates(leaves)
+    f0, live0, _ = _compact({"xpos": lc.xpos, "ypos": lc.ypos, "scale": lc.scale}, lc.valid, cap)
+    packed = torch.arange(cap, device=dev) < live0
+    sc0 = torch.where(packed, f0["scale"], 1.0)
+    hist = orient.orientation_histograms(leaves, f0["xpos"], f0["ypos"], sc0, live0)
+    ori0 = torch.where(packed, orient_plain.histogram_peaks(hist)[0], 0.0)
+    k7_args = (leaves, f0["xpos"], f0["ypos"], sc0, ori0, live0)
+
+    timers2 = {"graph_ms": timers["graph_ms"], "loop_ms": timers["loop_ms"]}
+    cases = []
+    for shape, args in (("blocks", k3_blocks), ("leaves", k3_leaves)):
+        out[f"live_{shape}"] = int(args[4].sum())
+        for mode in orient_desc.MODES:
+            errs = [check_k3(f"K3 {side}, {shape}", fn, args, mode)
+                    for side, fn in (("other", other_orient_desc),
+                                     ("this", orient_desc.orient_and_describe))]
+            cases.append((f"orient_desc_{mode}_{shape}", orient_desc.orient_and_describe,
+                          other_orient_desc, args + (mode,), errs))
+    errs = [check_k7(f"K7 {side}", fn, k7_args)
+            for side, fn in (("other", other_descriptor), ("this", descriptor.extract_descriptors))]
+    cases.append(("descriptor_leaves", descriptor.extract_descriptors, other_descriptor, k7_args,
+                  errs))
+    print(f"K3 (three samplers, {out['live_blocks']} and {out['live_leaves']} live of {cap}) and "
+          f"K7 ({int(live0)} live) of both trees within the tolerances and deterministic",
+          flush=True)
+    for kernel, this_fn, other_fn, args, errs in cases:
+        row = {"other_max_abs_err": errs[0], "this_max_abs_err": errs[1]}
+        for tname, timer in timers2.items():
+            for side, fn in (("other", other_fn), ("this", this_fn), ("this", this_fn),
+                             ("other", other_fn)):
+                row.setdefault(f"{side}_{tname}", []).append(timer(fn, args))
+        out[kernel] = row
+        print(f"{kernel}: {json.dumps(row)}", flush=True)
+
+    # K3 `shift` over one fused leaves flow: graph-replayed on the candidates
+    # of each octave of frame A, summed and counted twice (two frames).
+    flow = {"other": [0.0, 0.0], "this": [0.0, 0.0], "live": []}
+    octave_base = leaves
+    for o in range(params.num_octaves):
+        if o:
+            octave_base = convolve.scale_down(octave_base).contiguous()
+        args = candidates(octave_base, o)[1] + ("shift",)
+        flow["live"].append(int(args[4].sum()))
+        seen = {"other": 0, "this": 0}
+        for side, fn in (("other", other_orient_desc), ("this", orient_desc.orient_and_describe),
+                         ("this", orient_desc.orient_and_describe), ("other", other_orient_desc)):
+            flow[side][seen[side]] += 2 * timers["graph_ms"](fn, args)
+            seen[side] += 1
+    out["orient_desc_shift_flow"] = flow
+    print(f"orient_desc_shift_flow: {json.dumps(flow)}", flush=True)
+
     flat = mask.reshape(-1)
     nonzero_static = lambda f: torch.nonzero_static(f, size=cap, fill_value=0)  # noqa: E731
     out["compact"]["nonzero_static_ms"] = time_ms(nonzero_static, flat)

@@ -15,7 +15,8 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    calls back to back (``loop_ms``); beside them the least time the card
    could take (``bound_ms``) and, where one PyTorch call computes the same
    function, that call's time (``library_ms``; the port never calls it).
-   K3 in its three samplers;
+   K3 in its samplers, also on the octave-0 keypoints of the dead-leaves
+   frame (the main path's shape) and run twice for equal bits;
    the patch-acquisition kernels (P1) on the benchmark's own inputs; the
    eight capability probes (P2).
 4. Main path, fused: the reference demo flow on two synthetic 1920x1080
@@ -34,13 +35,17 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    leaves flow's 32768-slot sets, the hybrid matcher on the split flow's
    descriptor sets against the exact one, the compaction kernel on and off
    (bit-identical), and split against fused.
+   Then the device time of one fused leaves flow without the host's
+   dispatch: K1, K2 and K3 graph-replayed at the shapes of each of frame
+   A's five octaves, K4 on the flow's own sets, summed over two extractions
+   and one match, beside the launches of that flow.
 4c. The demo CLI (``cudasift_tpu_torch.cli``) on the card, in-process, on
    the dead-leaves pair written as PGM files; then the patch-acquisition
    benchmark and the probe runner, each with the counters at 0.
 
 Every wrapper launches on the current stream and never waits for the host
 when its counts are tensors on the card, so every row is captured.
-Prints one JSON line with the kernels' numbers, then as its last line
+Prints its wall time, one JSON line with the kernels' numbers, then as its last line
 ``{"ok": true, "device": {...}}``. Any failed phase raises and exits
 non-zero without that line.
 """
@@ -58,6 +63,7 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+T_START = time.perf_counter()
 H, W = 1080, 1920
 SEED = 0
 # The CLI's numFit floor on the dead-leaves pair (frames rounded to PGM,
@@ -275,6 +281,20 @@ def main() -> int:
     nlive = int(live.sum())
     require(nlive > 0, "K3 has no live keypoints")
 
+    def k3_bound(xpos, scale, valid, has2):
+        """K3's bound. Positions, scales and the live mask in, each live
+        keypoint's image square (reach 7.96 * scale + 2.5 px) read once,
+        both descriptor tables and the orientations out for every slot;
+        about 6000 operations for a keypoint's orientation and 256 grid
+        samples of about 60 (sampler, magnitude, angle, binning) per
+        descriptor."""
+        n = xpos.shape[0]
+        nl = int(valid.sum())
+        ndesc = nl + int((has2 & valid).sum())
+        nbytes = (13 * n + keypoint_square(scale[valid], 2.5, 7.96)
+                  + 2 * 128 * 4 * n + 9 * n)
+        return bound(nbytes, 6000 * nl + 256 * 60 * ndesc)
+
     def check_k3(mode):
         k3_args = (base0, got.xpos, got.ypos, sc, got.valid, mode)
         kd1, kd2, ko1, ko2, kh2 = orient_desc.orient_and_describe(*k3_args)
@@ -294,24 +314,17 @@ def main() -> int:
         norms = kd1[live].norm(dim=1)
         require(bool(((norms - 1.0).abs() < 1e-4).all()),
                 f"K3 {mode} descriptors are not unit length")
+        again = orient_desc.orient_and_describe(*k3_args)
+        require(all(torch.equal(a, b) for a, b in zip((kd1, kd2, ko1, ko2, kh2), again)),
+                f"K3 {mode} is not deterministic")
         log(f"K3 {mode}: {nlive} live, orientation median err {float(dori.median()):.3g} deg, "
             f"has2 agreement {agree2:.4f}, descriptor row err median "
-            f"{float(rowerr.median()):.3g} max {float(rowerr.max()):.3g}")
-        # Bound: positions, scales and the live mask in, each live
-        # keypoint's image square (reach 7.96 * scale + 2.5 px) read once,
-        # both descriptor tables and the orientations out for every slot;
-        # about 6000 operations for a keypoint's orientation and 256 grid
-        # samples of about 60 (sampler, magnitude, angle, binning) per
-        # descriptor.
-        n = got.xpos.shape[0]
-        ndesc = nlive + int((kh2 & live).sum())
-        nbytes = (13 * n + keypoint_square(sc[live], 2.5, 7.96)
-                  + 2 * 128 * 4 * n + 9 * n)
+            f"{float(rowerr.median()):.3g} max {float(rowerr.max()):.3g}, two runs equal")
         return dict(max_abs_err=float(rowerr.max()),
                     ms=time_ms(orient_desc.orient_and_describe, *k3_args),
                     graph_ms=time_ms_graph(orient_desc.orient_and_describe, *k3_args),
                     plain_ms=time_ms(orient_desc.orient_and_describe_plain, *k3_args, iters=5),
-                    bound=bound(nbytes, 6000 * nlive + 256 * 60 * ndesc),
+                    bound=k3_bound(got.xpos, sc, got.valid, kh2),
                     library_ms=None)
 
     results["orient_desc"] = check_k3("shift")
@@ -699,7 +712,7 @@ def main() -> int:
     run_flow("split path, blocks", split, (img_a, img_b), SPLIT_PATH,
              absent=(orient_desc.KERNEL,), gate_homography=False)
     leaves = (leaf_a, leaf_b)
-    la, lb, _ = run_flow("fused path, leaves", params, leaves, FUSED_PATH)
+    la, lb, leaves_launches = run_flow("fused path, leaves", params, leaves, FUSED_PATH)
     # The fused path with K3's fast sampler, gated as the shift flow above.
     _, _, fast_launches = run_flow("fast path, leaves",
                                    dataclasses.replace(params, fast_gradients=True),
@@ -742,6 +755,50 @@ def main() -> int:
         f"{results['match']['leaves']['loop_ms']:.4f} ms, K5 sweep "
         f"{results['match_sweep']['leaves']['loop_ms']:.4f} ms, torch.mm + torch.topk "
         f"{results['match']['leaves']['library_loop_ms']:.4f} ms")
+
+    # Device time of one fused leaves flow (two extractions and one match)
+    # without the host's dispatch: K1, K2 and K3 graph-replayed at the shapes
+    # of each of frame A's five octaves, fed as the pipeline feeds them, and
+    # K4 on the flow's own sets; an extraction's kernels are summed over the
+    # octaves and counted twice (frame B taken as frame A). Octave 0 is K3's
+    # row at the main path's shape, with its bound.
+    octave_rows = []
+    for o in range(params.num_octaves):
+        obase = leaf_bases[o]
+        cap_o = params.candidate_capacity(*obase.shape, o)
+        low_o = params.lowest_scale_effective / float(2 ** o)
+        k1_o = (obase, taps[o], params.thresh, params.edge_limit)
+        odog, omask = dog.dog_and_mask(*k1_o)
+        oidx, ocount = detect.compact_mask(omask, cap_o)
+        k2_o = (odog, oidx, ocount, params.edge_limit, low_o)
+        oc = refine.refine_candidates(*k2_o)
+        k3_o = (obase, oc.xpos, oc.ypos, torch.where(oc.valid, oc.scale, 1.0), oc.valid)
+        row = dict(octave=o, shape=list(obase.shape), slots=cap_o, live=int(oc.valid.sum()),
+                   dog=time_ms_graph(dog.dog_and_mask, *k1_o),
+                   refine=time_ms_graph(refine.refine_candidates, *k2_o),
+                   orient_desc=time_ms_graph(orient_desc.orient_and_describe, *k3_o, "shift"))
+        if o == 0:
+            oh2 = orient_desc.orient_and_describe(*k3_o, "shift")[4]
+            for name, mode in (("orient_desc", "shift"), ("orient_desc_fast", "fast")):
+                results[name]["leaves"] = dict(
+                    live=row["live"],
+                    graph_ms=(row["orient_desc"] if mode == "shift" else
+                              time_ms_graph(orient_desc.orient_and_describe, *k3_o, mode)),
+                    bound_ms=k3_bound(k3_o[1], k3_o[3], k3_o[4], oh2)[0])
+        octave_rows.append(row)
+    flow_ms = {name: 2 * sum(r[name] for r in octave_rows)
+               for name in ("dog", "refine", "orient_desc")}
+    flow_ms["match"] = time_ms_graph(match.match_descriptors, *lsets, n=20)
+    for name, ms in flow_ms.items():
+        results[name]["flow_graph_ms"] = ms
+    log(f"fused leaves flow, per octave (graph-replayed ms): {json.dumps(octave_rows)}")
+    log(f"fused leaves flow, device time of its kernels without dispatch: "
+        f"{sum(flow_ms.values()):.4f} ms = {json.dumps(flow_ms)}; launches of the flow "
+        f"{ {k.name: leaves_launches[k.name] for k in FUSED_PATH} }; K3 at octave 0 "
+        f"({octave_rows[0]['live']} live of {octave_rows[0]['slots']}): shift "
+        f"{results['orient_desc']['leaves']['graph_ms']:.4f} ms, fast "
+        f"{results['orient_desc_fast']['leaves']['graph_ms']:.4f} ms, bound "
+        f"{results['orient_desc']['leaves']['bound_ms']:.4f} ms")
 
     # K5 on the split flow's own descriptor sets against K4, with the
     # agreement rule of phase 3.
@@ -837,6 +894,13 @@ def main() -> int:
     for k in FUSED_PATH:
         launches[k.name] = cli_launches[k.name]
     launches["orient_desc_fast"] = fast_launches[orient_desc.KERNEL.name]
+    # Launches of one flow (two extractions and a match): the fused leaves
+    # flow's for its kernels, the split leaves flow's for the split ones.
+    flow_launches = {k.name: leaves_launches[k.name] for k in FUSED_PATH}
+    flow_launches["orient_desc_fast"] = fast_launches[orient_desc.KERNEL.name]
+    for k in SPLIT_PATH:
+        if k not in FUSED_PATH:
+            flow_launches[k.name] = split_launches[k.name]
 
     # The acquisition benchmark and the probe runner, each with the counters
     # at 0 just before it and read just after.
@@ -860,12 +924,14 @@ def main() -> int:
         k = by_name[name]
         rows.append({"name": name, "route": "cuda", "source": k.source_path,
                      "replaces": k.replaces, "launches": launches[name],
+                     "flow_launches": flow_launches.get(name),
                      "max_abs_err": r.pop("max_abs_err"), "ms": r.pop("ms"),
                      "graph_ms": r.pop("graph_ms"),
                      "plain_ms": r.pop("plain_ms"), "bound_ms": r["bound"][0],
                      "bound_by": r.pop("bound")[1], "library_ms": r.pop("library_ms"),
                      **r})   # N-call times, the matchers' main-path shape
     require(len(rows) == len(KERNELS) + 1, f"{len(rows)} kernel rows for {len(KERNELS)} kernels")
+    log(f"wall time {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,10 +20,20 @@
 // (ops/descriptor.py:extract_descriptors with texture.SPLIT_DESC and the
 // "exact" sampler); build with -fmad=false so the two round alike.
 //
-// Bound: latency per keypoint, 4096 scattered image reads (through the
-// cache; the taps of one keypoint touch a few hundred pixels, so the patch
-// is not staged) and the 128 x 256 binning loop; a few thousand live
-// keypoints per octave.
+// Bound: a few thousand live keypoints per octave, one block each: the SM's
+// issue rate and the latency of the scattered image reads. What the design
+// does about it: the four taps' 16 image reads are all issued before the
+// first is used (they go through the cache: the taps of one keypoint touch
+// a few hundred pixels, so the patch is not staged); the binning walks only
+// each entry's 8x8 window with compile-time weights on all 256 threads, two
+// lanes an entry, in 16-byte reads (sift_common.cuh); the norms are shuffle
+// trees. One barrier behind the samples and one a norm: three a block.
+// Occupancy: shared memory is 10.2 KB a block; __launch_bounds__(256, 8)
+// holds the kernel to 32 registers a thread (no spills), so the SM's 2048
+// threads, 8 blocks, are the limit; left alone the compiler takes 64
+// registers, and the kernel ran a tenth slower on an H100 at a few thousand
+// live keypoints. Slots past the count are zeroed by one warp with 16-byte
+// stores.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -34,22 +44,22 @@
 namespace {
 
 constexpr int THREADS = 256;
+constexpr int MIN_BLOCKS = 8;          // blocks an SM the registers are held to
 constexpr int MARGIN = 22, P = 48, PW = 128;
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 descriptor_kernel(const float* __restrict__ img, int h, int w,
                   const float* __restrict__ xpos, const float* __restrict__ ypos,
                   const float* __restrict__ scale, const float* __restrict__ orientation,
                   const int* __restrict__ count, float* __restrict__ desc) {
-    __shared__ sift::DescShared ds;
+    __shared__ sift::DescShared<1> ds;
     const int k = blockIdx.x;
     const int t = threadIdx.x;
     float* out = desc + (size_t)k * 128;
     if (k >= *count) {
-        if (t < 128) out[t] = 0.0f;
+        if (t < 32) reinterpret_cast<float4*>(out)[t] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
         return;
     }
-    sift::fill_spatial_weights(ds, t);  // read after bin_and_write's first barrier
 
     const float x = xpos[k], y = ypos[k], sc = scale[k];
     const int ox = max((int)floorf(x) - MARGIN, 0);
@@ -58,26 +68,42 @@ descriptor_kernel(const float* __restrict__ img, int h, int w,
     const float lx0 = x - (float)ox, ly0 = y - (float)oy;
     const float s12 = 0.75f * sc;
     const float th = (float)(2.0 * 3.1415 / 360.0) * orientation[k];
-    const float cosa = cosf(th), sina = sinf(th);
+    float sina, cosa;
+    sincosf(th, &sina, &cosa);
     const float xs = lx0 + gx * (s12 * cosa) - gy * (s12 * sina) + 0.5f;
     const float ys = ly0 + gx * (s12 * sina) + gy * (s12 * cosa) + 0.5f;
+    const float gweight = sift::grid_gauss(t);
     const float tx[4] = {cosa, -cosa, -sina, sina};
     const float ty[4] = {sina, -sina, cosa, -cosa};
-    float v[4];
+    // Every tap's four image values first, then the arithmetic.
+    float sx[4], sy[4], v00[4], v01[4], v10[4], v11[4];
+    int p0[4], q0[4];
+#pragma unroll
     for (int j = 0; j < 4; ++j) {
-        const float sx = fminf(fmaxf(xs + tx[j] - 0.5f, 0.0f), (float)PW - 1.0f);
-        const float sy = fminf(fmaxf(ys + ty[j] - 0.5f, 0.0f), (float)P - 1.0f);
-        const int p0 = (int)floorf(sy), q0 = (int)floorf(sx);
-        const float wr0 = sift::tent(p0, sy), wr1 = sift::tent(p0 + 1, sy);
-        const float wc0 = sift::tent(q0, sx), wc1 = sift::tent(q0 + 1, sx);
-        const float* r0 = img + (size_t)min(oy + p0, h - 1) * w;
-        const float* r1 = img + (size_t)min(oy + p0 + 1, h - 1) * w;
-        const int c0 = min(ox + q0, w - 1), c1 = min(ox + q0 + 1, w - 1);
-        const float top = r0[c0] * wc0 + r0[c1] * wc1;
-        const float bot = r1[c0] * wc0 + r1[c1] * wc1;
+        sx[j] = fminf(fmaxf(xs + tx[j] - 0.5f, 0.0f), (float)PW - 1.0f);
+        sy[j] = fminf(fmaxf(ys + ty[j] - 0.5f, 0.0f), (float)P - 1.0f);
+        p0[j] = (int)floorf(sy[j]);
+        q0[j] = (int)floorf(sx[j]);
+        // An octave holds fewer than 2^31 pixels: 32-bit offsets.
+        const int r0 = min(oy + p0[j], h - 1) * w, r1 = min(oy + p0[j] + 1, h - 1) * w;
+        const int c0 = min(ox + q0[j], w - 1), c1 = min(ox + q0[j] + 1, w - 1);
+        v00[j] = __ldg(img + r0 + c0);
+        v01[j] = __ldg(img + r0 + c1);
+        v10[j] = __ldg(img + r1 + c0);
+        v11[j] = __ldg(img + r1 + c1);
+    }
+    float v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+        const float wr0 = sift::tent(p0[j], sy[j]), wr1 = sift::tent(p0[j] + 1, sy[j]);
+        const float wc0 = sift::tent(q0[j], sx[j]), wc1 = sift::tent(q0[j] + 1, sx[j]);
+        const float top = v00[j] * wc0 + v01[j] * wc1;
+        const float bot = v10[j] * wc0 + v11[j] * wc1;
         v[j] = wr0 * top + wr1 * bot;
     }
-    sift::bin_and_write(ds, t, v[0] - v[1], v[2] - v[3], sift::grid_gauss(t), out);
+    sift::stage_sample(ds.smp[0], t, v[0] - v[1], v[2] - v[3], gweight);
+    __syncthreads();
+    sift::bin_and_write<true>(ds, t, out, nullptr);
 }
 
 }  // namespace

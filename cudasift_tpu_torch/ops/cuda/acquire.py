@@ -103,7 +103,7 @@ def acquire(img: torch.Tensor, oy: torch.Tensor, ox: torch.Tensor, rxy: torch.Te
     check(ox, "ox", torch.int32, (n,), dev)
     check(rxy, "rxy", torch.int32, (rxy.shape[0],), dev)
     out = torch.empty((n // GROUP, 8, 128), dtype=torch.float32, device=dev)
-    KERNELS[(staged, roll)](ptr(img), h, w, ptr(oy), ptr(ox), ptr(rxy), rxy.shape[0] // 2, n,
+    KERNELS[(staged, roll)](dev, ptr(img), h, w, ptr(oy), ptr(ox), ptr(rxy), rxy.shape[0] // 2, n,
                             ptr(out))
     return out
 

@@ -59,7 +59,7 @@ def compact_mask(mask: torch.Tensor, capacity: int):
     nseg = segments(n, mask.data_ptr() % VECTOR)
     buf = torch.empty((capacity + 2 + nseg,), dtype=torch.int32, device=mask.device)
     at = buf.data_ptr()
-    KERNEL(ptr(mask), n, int(capacity), ctypes.c_void_p(at + 4 * (capacity + 2)),
+    KERNEL(mask.device, ptr(mask), n, int(capacity), ctypes.c_void_p(at + 4 * (capacity + 2)),
            ctypes.c_void_p(at), ctypes.c_void_p(at + 4 * capacity),
            ctypes.c_void_p(at + 4 * (capacity + 1)))
     return buf[:capacity], buf[capacity], buf[capacity + 1]

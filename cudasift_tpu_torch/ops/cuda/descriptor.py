@@ -68,6 +68,6 @@ def extract_descriptors(img: torch.Tensor, xpos: torch.Tensor, ypos: torch.Tenso
         check(t, name, torch.float32, (n,), dev)
     count = count_tensor(count, "count", dev)
     desc = torch.empty((n, 128), dtype=torch.float32, device=dev)
-    KERNEL(ptr(img), h, w, ptr(xpos), ptr(ypos), ptr(scale), ptr(orientation),
+    KERNEL(dev, ptr(img), h, w, ptr(xpos), ptr(ypos), ptr(scale), ptr(orientation),
            ptr(count), n, ptr(desc))
     return desc

@@ -58,6 +58,6 @@ def dog_and_mask(img: torch.Tensor, kernels: np.ndarray, thresh: float,
         raise ValueError(f"expected (8, 9) taps, got {taps.shape}")
     dog = torch.empty((7, h, w), dtype=torch.float32, device=img.device)
     mask = torch.empty((5, h, w), dtype=torch.bool, device=img.device)
-    KERNEL(ptr(img), taps.ctypes.data_as(ctypes.c_void_p), h, w,
+    KERNEL(img.device, ptr(img), taps.ctypes.data_as(ctypes.c_void_p), h, w,
            float(thresh), float(edge_limit), ptr(dog), ptr(mask))
     return dog, mask

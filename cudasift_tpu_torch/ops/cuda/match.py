@@ -76,7 +76,7 @@ def sweep_candidates(d1: torch.Tensor, d2: torch.Tensor, n1, n2):
     nch = -(-n2_cap // plain.SWEEP_CHUNK)
     cand_s = torch.empty((n1_cap, 2 * nch), dtype=torch.float32, device=d1.device)
     cand_i = torch.empty((n1_cap, 2 * nch), dtype=torch.int32, device=d1.device)
-    SWEEP_KERNEL(ptr(d1), ptr(d2), n1_cap, n2_cap, ptr(n1_t), ptr(n2_t), nch,
+    SWEEP_KERNEL(d1.device, ptr(d1), ptr(d2), n1_cap, n2_cap, ptr(n1_t), ptr(n2_t), nch,
                  ptr(cand_s), ptr(cand_i))
     return cand_s, cand_i
 
@@ -105,7 +105,7 @@ def match_descriptors(d1: torch.Tensor, d2: torch.Tensor, n1, n2,
     score = torch.empty((n1_cap,), dtype=torch.float32, device=dev)
     ambiguity = torch.empty((n1_cap,), dtype=torch.float32, device=dev)
     index = torch.empty((n1_cap,), dtype=torch.int32, device=dev)
-    KERNEL(ptr(d1), ptr(d2), n1_cap, n2_cap, ptr(n1_t), ptr(n2_t),
+    KERNEL(dev, ptr(d1), ptr(d2), n1_cap, n2_cap, ptr(n1_t), ptr(n2_t),
            1 if use_bf16 else 0, splits, ptr(part_s), ptr(part_i),
            ptr(score), ptr(ambiguity), ptr(index))
     return score, ambiguity, index

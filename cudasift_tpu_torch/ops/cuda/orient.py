@@ -62,5 +62,5 @@ def orientation_histograms(img: torch.Tensor, xpos: torch.Tensor, ypos: torch.Te
         check(t, name, torch.float32, (n,), dev)
     count = count_tensor(count, "count", dev)
     hist = torch.empty((n, 32), dtype=torch.float32, device=dev)
-    KERNEL(ptr(img), h, w, ptr(xpos), ptr(ypos), ptr(scale), ptr(count), n, ptr(hist))
+    KERNEL(dev, ptr(img), h, w, ptr(xpos), ptr(ypos), ptr(scale), ptr(count), n, ptr(hist))
     return hist

@@ -88,7 +88,7 @@ def orient_and_describe(img: torch.Tensor, xpos: torch.Tensor, ypos: torch.Tenso
     ori1 = torch.empty((n,), dtype=torch.float32, device=dev)
     ori2 = torch.empty((n,), dtype=torch.float32, device=dev)
     has2 = torch.empty((n,), dtype=torch.bool, device=dev)
-    KERNEL(ptr(img), h, w, ptr(xpos), ptr(ypos), ptr(scale), ptr(live), n,
+    KERNEL(dev, ptr(img), h, w, ptr(xpos), ptr(ypos), ptr(scale), ptr(live), n,
            MODES.index(mode), ptr(desc1), ptr(desc2), ptr(ori1),
            ptr(ori2), ptr(has2))
     return desc1, desc2, ori1, ori2, has2

@@ -60,7 +60,7 @@ def slice_rows(img: torch.Tensor, off: torch.Tensor, out_rows: int = 8) -> torch
     r, c = _2d(img, "img")
     check(off, "off", torch.int32, (1,), img.device)
     out = torch.empty((out_rows, c), dtype=torch.float32, device=img.device)
-    SLICE_ROWS(ptr(img), r, c, ptr(off), out_rows, ptr(out))
+    SLICE_ROWS(img.device, ptr(img), r, c, ptr(off), out_rows, ptr(out))
     return out
 
 
@@ -79,7 +79,7 @@ def lane_lane_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"needs a (16, k) and b (n, k), n % 8 == 0, k % 16 == 0; got "
                          f"{tuple(a.shape)}, {tuple(b.shape)}")
     out = torch.empty((16, n), dtype=torch.float32, device=a.device)
-    LANE_LANE_DOT(ptr(a), ptr(b), n, k, ptr(out))
+    LANE_LANE_DOT(a.device, ptr(a), ptr(b), n, k, ptr(out))
     return out
 
 
@@ -96,7 +96,7 @@ def scale_by_scalar(s: torch.Tensor, idx: int, x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"idx {idx} outside s of length {s.shape[0]}")
     _2d(x, "x")
     out = torch.empty_like(x)
-    SCALE_BY_SCALAR(ptr(s), idx, ptr(x), x.numel(), ptr(out))
+    SCALE_BY_SCALAR(x.device, ptr(s), idx, ptr(x), x.numel(), ptr(out))
     return out
 
 
@@ -112,7 +112,7 @@ def transpose(x: torch.Tensor) -> torch.Tensor:
         return transpose_plain(x)
     r, c = _2d(x, "x")
     out = torch.empty((c, r), dtype=torch.float32, device=x.device)
-    TRANSPOSE(ptr(x), r, c, ptr(out))
+    TRANSPOSE(x.device, ptr(x), r, c, ptr(out))
     return out
 
 
@@ -130,7 +130,7 @@ def block_diag(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     ra, ca = _2d(a, "a")
     rb, cb = _2d(b, "b")
     out = torch.empty((ra + rb, ca + cb), dtype=torch.float32, device=a.device)
-    BLOCK_DIAG(ptr(a), ra, ca, ptr(b), rb, cb, ptr(out))
+    BLOCK_DIAG(a.device, ptr(a), ra, ca, ptr(b), rb, cb, ptr(out))
     return out
 
 
@@ -149,7 +149,7 @@ def strided_rows(x: torch.Tensor, rows: int, start: int, stride: int) -> torch.T
         return strided_rows_plain(x, rows, start, stride)
     _, c = _2d(x, "x")
     out = torch.empty((rows, c), dtype=torch.float32, device=x.device)
-    STRIDED_ROWS(ptr(x), rows, c, start, stride, ptr(out))
+    STRIDED_ROWS(x.device, ptr(x), rows, c, start, stride, ptr(out))
     return out
 
 
@@ -166,7 +166,7 @@ def roll_cols(x: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
     r, c = _2d(x, "x")
     check(shift, "shift", torch.int32, (1,), x.device)
     out = torch.empty_like(x)
-    ROLL_COLS(ptr(x), r, c, ptr(shift), ptr(out))
+    ROLL_COLS(x.device, ptr(x), r, c, ptr(shift), ptr(out))
     return out
 
 
@@ -183,7 +183,7 @@ def small_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if kb != k:
         raise ValueError(f"inner dimensions differ: {tuple(a.shape)}, {tuple(b.shape)}")
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    SMALL_DOT(ptr(a), ptr(b), m, k, n, ptr(out))
+    SMALL_DOT(a.device, ptr(a), ptr(b), m, k, n, ptr(out))
     return out
 
 

@@ -48,7 +48,7 @@ def refine_candidates(dog: torch.Tensor, flat_idx: torch.Tensor,
     check(count, "count", torch.int32, (), dog.device)
     out = torch.empty((5, k), dtype=torch.float32, device=dog.device)
     valid = torch.empty((k,), dtype=torch.bool, device=dog.device)
-    KERNEL(ptr(dog), ptr(flat_idx), ptr(count), k, h, w, float(edge_limit),
+    KERNEL(dog.device, ptr(dog), ptr(flat_idx), ptr(count), k, h, w, float(edge_limit),
            float(lowest_scale), ptr(out), ptr(valid))
     return detect.Candidates(xpos=out[0], ypos=out[1], scale=out[2],
                              sharpness=out[3], edgeness=out[4], valid=valid)

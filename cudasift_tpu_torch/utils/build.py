@@ -75,10 +75,12 @@ class Kernel:
     """One C launcher of a CUDA source, with its launch count.
 
     ``launches`` rises by one for every successful launch and nowhere else;
-    callers may reset it to 0. Calling the object builds the library on
-    first use, launches on ``torch.cuda.current_stream()`` and raises if the
-    launcher returns a non-zero ``cudaError_t``. ``name`` defaults to the
-    source's stem; a source with several launchers names each.
+    callers may reset it to 0. Calling the object with the CUDA device of
+    its tensors and the launcher's arguments builds the library on first
+    use, launches under that device's guard on its current stream (the
+    capture stream while a CUDA graph is being captured there) and raises if
+    the launcher returns a non-zero ``cudaError_t``. ``name`` defaults to
+    the source's stem; a source with several launchers names each.
     """
 
     def __init__(self, source: str, symbol: str, argtypes: list,
@@ -104,10 +106,10 @@ class Kernel:
             self._fn = fn
         return self._fn
 
-    def __call__(self, *args) -> None:
+    def __call__(self, device: torch.device, *args) -> None:
         fn = self.load()
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*args, stream)
+        with torch.cuda.device(device):
+            err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
         if err != 0:
             raise RuntimeError(
                 f"{self.symbol} ({self.source}) failed: cudaError_t {err}")

@@ -88,6 +88,106 @@ def test_orient_desc_kernel_matches_plain(cuda, mode):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+def border_keypoints(cuda, h=200, w=300):
+    """Keypoints within 7 px of each border and corner (and past the box),
+    each at a scale on either side of the 1.72 patch-size switch, and a few
+    in the interior; every sixth slot dead."""
+    edge_x = [-0.6, 0.0, 0.4, 3.3, 6.9, w - 7.2, w - 3.5, w - 1.0, w - 0.3]
+    edge_y = [-0.6, 0.0, 0.4, 3.3, 6.9, h - 7.2, h - 3.5, h - 1.0, h - 0.3]
+    pts = [(x, y) for x in edge_x for y in (2.5, h / 2 + 0.25, h - 2.5)]
+    pts += [(x, y) for y in edge_y for x in (2.5, w / 2 + 0.75, w - 2.5)]
+    pts += [(x, y) for x in (0.0, w - 1.0) for y in (0.0, h - 1.0)]
+    pts += [(w / 3, h / 3), (w / 2 + 0.5, h / 2 + 0.5), (2 * w / 3 + 0.1, 2 * h / 3 + 0.9)]
+    xs, ys, ss = [], [], []
+    for x, y in pts:
+        for sc in (0.9, 1.72, 1.7200001, 2.6):
+            xs.append(x)
+            ys.append(y)
+            ss.append(sc)
+    n = len(xs)
+    x = torch.tensor(xs, dtype=torch.float32, device=cuda)
+    y = torch.tensor(ys, dtype=torch.float32, device=cuda)
+    s = torch.tensor(ss, dtype=torch.float32, device=cuda)
+    live = torch.arange(n, device=cuda) % 6 != 5
+    return octave(cuda, h, w), x, y, s, live
+
+
+@pytest.mark.parametrize("mode", ["shift", "exact", "fast"])
+def test_orient_desc_kernel_at_borders_and_both_patch_sizes(cuda, mode):
+    img, x, y, s, live = border_keypoints(cuda)
+    assert bool((s[live] <= 1.72).any()) and bool((s[live] > 1.72).any())
+    before = orient_desc.KERNEL.launches
+    got = orient_desc.orient_and_describe(img, x, y, s, live, mode)
+    again = orient_desc.orient_and_describe(img, x, y, s, live, mode)
+    torch.cuda.synchronize()
+    assert orient_desc.KERNEL.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))        # bit-identical
+    ref = orient_desc.orient_and_describe_plain(img, x, y, s, live, mode)
+    dori = (got[2] - ref[2]).abs()
+    dori = torch.minimum(dori, 360.0 - dori)[live]
+    assert float(dori.median()) < 0.2 and float((dori < 2.0).float().mean()) >= 0.9
+    assert float((got[4] == ref[4])[live].float().mean()) >= 0.9
+    same = live & ((got[2] - ref[2]).abs() < 1e-3)
+    assert int(same.sum()) >= 0.9 * int(live.sum())
+    rowerr = (got[0] - ref[0]).abs().max(dim=1).values[same]
+    assert float(rowerr.median()) < 4e-3 and float(rowerr.max()) < 2e-2
+    both = same & got[4] & ref[4] & ((got[3] - ref[3]).abs() < 1e-3)
+    assert int(both.sum()) > 5                                       # second descriptors too
+    assert float((got[1] - ref[1]).abs().max(dim=1).values[both].max()) < 2e-2
+    torch.testing.assert_close(got[0][live].norm(dim=1),
+                               torch.ones(int(live.sum()), device=cuda), rtol=0, atol=1e-4)
+    torch.testing.assert_close(got[1][live & got[4]].norm(dim=1),
+                               torch.ones(int((live & got[4]).sum()), device=cuda),
+                               rtol=0, atol=1e-4)
+    assert not got[0][~live].any() and not got[1][~(live & got[4])].any()
+    assert not got[2][~live].any() and not got[3][~live].any() and not got[4][~live].any()
+
+
+@pytest.mark.parametrize("mode", ["shift", "exact", "fast"])
+def test_orient_desc_kernel_replays_in_a_graph(cuda, mode):
+    """Captured once, replayed on new keypoints and a new live mask: every
+    replay equals an eager call bit for bit."""
+    img, x, y, s, live = border_keypoints(cuda)
+    args = [t.clone() for t in (x, y, s, live)]
+    orient_desc.orient_and_describe(img, *args, mode)    # build and load outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = orient_desc.orient_and_describe(img, *args, mode)
+    g = torch.Generator(device=cuda).manual_seed(65)
+    n = x.shape[0]
+    for shift in (0.0, 11.3, 57.9):
+        args[0].copy_((x + shift) % 300.0)
+        args[1].copy_((y + 0.5 * shift) % 200.0)
+        args[2].copy_(0.9 + 1.7 * torch.rand(n, device=cuda, generator=g))
+        args[3].copy_(torch.rand(n, device=cuda, generator=g) < 0.8)
+        graph.replay()
+        eager = orient_desc.orient_and_describe(img, *args, mode)
+        assert all(torch.equal(a, b) for a, b in zip(out, eager)), shift
+        assert bool(out[4].any()) and not out[0][~args[3]].any()
+
+
+def test_descriptor_kernel_replays_in_a_graph(cuda):
+    """K7 captured once and replayed on new keypoints, orientations and
+    counts, the count read on the device."""
+    img, x, y, s, o, count = front_packed(cuda)
+    args = [t.clone() for t in (x, y, s, o, count)]
+    descriptor.extract_descriptors(img, *args)           # build and load outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = descriptor.extract_descriptors(img, *args)
+    for shift, live in ((0.0, 50), (17.7, 64), (91.2, 0), (3.1, 1)):
+        args[0].copy_((x + shift) % 300.0)
+        args[3].copy_((o + 3.0 * shift) % 360.0)
+        args[4].fill_(live)
+        graph.replay()
+        ref = descriptor.extract_descriptors_plain(img, *args)
+        assert float((out - ref).abs().max()) <= 1e-5, (shift, live)
+        assert torch.equal(out, descriptor.extract_descriptors(img, *args))
+        assert not out[live:].any() and bool(out[:live].any()) == (live > 0)
+
+
 def flip_case(cuda):
     """The JAX package's bfloat16 near-tie (tests/test_pallas.py): row 40
     wins in exact arithmetic, row 20 in the bfloat16x3 split."""

@@ -167,3 +167,46 @@ def test_wrappers_reject_other_devices():
     rest = KERNELS[len(LIBRARY):]
     assert all(k.replaces.startswith(("benchmarks/acquire_bench.py:",
                                       "benchmarks/mosaic_probe.py:")) for k in rest)
+
+
+def test_kernel_launches_on_its_tensors_device(monkeypatch):
+    """A call for tensors on ``cuda:1`` enters that device's guard and
+    launches on that device's current stream, whatever the current device
+    is; nothing here needs a card."""
+    import contextlib
+
+    from cudasift_tpu_torch.utils.build import Kernel
+
+    events = []
+
+    def fake_launcher(*args):
+        events.append(("launch", args))
+        return 0
+
+    class FakeStream:
+        cuda_stream = 0xBEEF
+
+    def fake_current_stream(device=None):
+        events.append(("stream", device))
+        return FakeStream()
+
+    @contextlib.contextmanager
+    def fake_guard(device):
+        events.append(("enter", device))
+        yield
+        events.append(("exit", device))
+
+    kern = Kernel("dog.cu", "dog_and_mask", [])
+    monkeypatch.setattr(Kernel, "load", lambda self: fake_launcher)
+    monkeypatch.setattr(torch.cuda, "current_stream", fake_current_stream)
+    monkeypatch.setattr(torch.cuda, "device", fake_guard)
+    dev = torch.device("cuda", 1)
+    kern(dev, 11, 22)
+    assert events == [("enter", dev), ("stream", dev), ("launch", (11, 22, 0xBEEF)),
+                      ("exit", dev)]
+    assert kern.launches == 1
+    # A launcher that reports an error raises and does not count.
+    monkeypatch.setattr(Kernel, "load", lambda self: lambda *a: 700)
+    with pytest.raises(RuntimeError, match="cudaError_t 700"):
+        kern(dev, 11, 22)
+    assert kern.launches == 1
