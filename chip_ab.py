@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Time the K1 (``dog.cu``), K8 (``compact.cu``), K3 (``orient_desc.cu``) and
-K7 (``descriptor.cu``) kernels of this checkout against those of another
-checkout, in turns, on one CUDA card.
+"""Time the K1 (``dog.cu``), K8 (``compact.cu``), K3 (``orient_desc.cu``),
+K7 (``descriptor.cu``), K2 (``refine.cu``) and K6 (``orient.cu``) kernels of
+this checkout against those of another checkout, in turns, on one CUDA card.
 
 Run from the repository root: ``python3 chip_ab.py OTHER_ROOT``, where
 ``OTHER_ROOT`` holds an older tree of the repository (for example the parent
 commit unpacked with ``git archive``). Both trees' kernels must keep the C
-entry points ``dog_and_mask``, ``compact_mask``, ``orient_and_describe`` and
-``extract_descriptors`` with their present arguments. The other tree's
+entry points ``dog_and_mask``, ``compact_mask``, ``orient_and_describe``,
+``extract_descriptors``, ``refine_candidates`` and ``orientation_histograms``
+with their present arguments. The other tree's
 sources are built from its ``csrc`` (with its own ``sift_common.cuh``) and
 bound with this tree's argument types; its K8 gets the scratch its own
 wrapper sized (one int per 4096 mask entries, which covers any later
@@ -32,6 +33,16 @@ dead-leaves frame's front-packed keypoints at their K6 orientations, as
 ``time_ms_graph`` and ``time_ms_loop`` run in the same order of turns. Last,
 K3 ``shift`` graph-replayed on each of the dead-leaves frame's five octaves,
 summed over one flow's two extractions (``orient_desc_shift_flow``).
+
+K3's five outputs are also held equal, bit for bit, between the two trees in
+every sampler at both shapes (``orient_desc_bits_equal``). K2 runs on the
+octave-0 candidates of both frames and must equal the plain version on both
+trees; K6 on the dead-leaves frame's front-packed keypoints: the other
+tree's histogram-only launch, alone and followed by the plain peak search
+(what its split path ran), against this tree's launch with the peaks inside
+and its histogram-only launch (``orient_leaves``), every histogram within
+rtol 1e-5 of the plain version. Both are timed graph-replayed and back to
+back, in the same order of turns.
 Prints the card's name and power limit, then one JSON line.
 """
 
@@ -117,6 +128,35 @@ def main(argv: list[str]) -> int:
                  orient_desc.MODES.index(mode), ptr(desc1), ptr(desc2), ptr(ori1), ptr(ori2),
                  ptr(has2))
         return desc1, desc2, ori1, ori2, has2
+
+    other_k2 = Kernel(str(other_csrc / "refine.cu"), "refine_candidates",
+                      refine.KERNEL.argtypes, flags=refine.KERNEL.flags, name="other_refine")
+    # The histogram-only entry point, which both trees export.
+    hist_argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4 \
+        + [ctypes.c_int, ctypes.c_void_p]
+    other_k6 = Kernel(str(other_csrc / "orient.cu"), "orientation_histograms", hist_argtypes,
+                      flags=orient.KERNEL.flags, name="other_orient")
+
+    def other_refine(dog_stack, flat_idx, count, edge_limit, lowest_scale):
+        _, h, w = dog_stack.shape
+        k = flat_idx.shape[0]
+        fields = torch.empty((5, k), dtype=torch.float32, device=dog_stack.device)
+        valid = torch.empty((k,), dtype=torch.bool, device=dog_stack.device)
+        other_k2(dog_stack.device, ptr(dog_stack), ptr(flat_idx), ptr(count), k, h, w,
+                 float(edge_limit), float(lowest_scale), ptr(fields), ptr(valid))
+        return detect.Candidates(*fields, valid=valid)
+
+    def other_orient(img, xpos, ypos, scale, count):
+        h, w = img.shape
+        n = xpos.shape[0]
+        hist = torch.empty((n, 32), dtype=torch.float32, device=img.device)
+        other_k6(img.device, ptr(img), h, w, ptr(xpos), ptr(ypos), ptr(scale), ptr(count), n,
+                 ptr(hist))
+        return hist
+
+    def other_orient_peaks(img, xpos, ypos, scale, count):
+        hist = other_orient(img, xpos, ypos, scale, count)
+        return (hist,) + tuple(orient_plain.histogram_peaks(hist))
 
     def other_descriptor(img, xpos, ypos, scale, orientation, count):
         h, w = img.shape
@@ -234,6 +274,18 @@ def main(argv: list[str]) -> int:
                                      ("this", orient_desc.orient_and_describe))]
             cases.append((f"orient_desc_{mode}_{shape}", orient_desc.orient_and_describe,
                           other_orient_desc, args + (mode,), errs))
+    # K3 of the two trees against each other: every output equal.
+    bits = {}
+    for shape, args in (("blocks", k3_blocks), ("leaves", k3_leaves)):
+        for mode in orient_desc.MODES:
+            this = orient_desc.orient_and_describe(*args, mode)
+            other = other_orient_desc(*args, mode)
+            bits[f"{mode}_{shape}"] = all(torch.equal(a, b) for a, b in zip(this, other))
+    out["orient_desc_bits_equal"] = bits
+    print(f"orient_desc_bits_equal: {json.dumps(bits)}", flush=True)
+    if not all(bits.values()):
+        raise RuntimeError("chip_ab: K3's outputs differ between the two trees")
+
     errs = [check_k7(f"K7 {side}", fn, k7_args)
             for side, fn in (("other", other_descriptor), ("this", descriptor.extract_descriptors))]
     cases.append(("descriptor_leaves", descriptor.extract_descriptors, other_descriptor, k7_args,
@@ -249,6 +301,54 @@ def main(argv: list[str]) -> int:
                 row.setdefault(f"{side}_{tname}", []).append(timer(fn, args))
         out[kernel] = row
         print(f"{kernel}: {json.dumps(row)}", flush=True)
+
+    # K2 on the octave-0 candidates of both frames, K6 on the dead-leaves
+    # frame's front-packed keypoints.
+    def k2_args(octave_base):
+        dog_o, mask_o = dog.dog_and_mask(octave_base, taps[0], params.thresh, params.edge_limit)
+        idx, count = detect.compact_mask(mask_o, cap)
+        return (dog_o, idx, count, params.edge_limit, params.lowest_scale_effective)
+
+    fields = ("xpos", "ypos", "scale", "sharpness", "edgeness", "valid")
+    for shape, octave_base in (("blocks", base), ("leaves", leaves)):
+        args = k2_args(octave_base)
+        ref = detect.refine_candidates(*args)
+        row = {"candidates": int(args[2])}
+        for side, fn in (("other", other_refine), ("this", refine.refine_candidates)):
+            got = fn(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(got.valid, ref.valid) or not all(
+                    torch.allclose(getattr(got, f), getattr(ref, f), rtol=3e-7, atol=0.0)
+                    for f in fields[:5]):
+                raise RuntimeError(f"chip_ab: K2 {side} ({shape}) differs from the plain version")
+            row[f"{side}_equals_plain"] = all(torch.equal(getattr(got, f), getattr(ref, f))
+                                              for f in fields)
+        for tname, timer in timers2.items():
+            for side, fn in (("other", other_refine), ("this", refine.refine_candidates),
+                             ("this", refine.refine_candidates), ("other", other_refine)):
+                row.setdefault(f"{side}_{tname}", []).append(timer(fn, args))
+        out[f"refine_{shape}"] = row
+        print(f"refine_{shape}: {json.dumps(row)}", flush=True)
+
+    k6_args = k7_args[:4] + (live0,)
+    ref6 = orient.orientation_histograms_plain(*k6_args)
+    row = {"live": int(live0)}
+    for side, fn in (("other", other_orient), ("this", orient.orientation_histograms)):
+        got = fn(*k6_args)
+        torch.cuda.synchronize()
+        if not torch.allclose(got, ref6, rtol=1e-5, atol=1e-6) or not torch.equal(
+                got, fn(*k6_args)):
+            raise RuntimeError(f"chip_ab: K6 {side} differs from the plain version")
+        row[f"{side}_max_abs_err"] = float((got - ref6).abs().max())
+    turns6 = (("other_hist", other_orient), ("other_hist_plain_peaks", other_orient_peaks),
+              ("this_peaks", orient.orientation_peaks), ("this_hist", orient.orientation_histograms),
+              ("this_hist", orient.orientation_histograms), ("this_peaks", orient.orientation_peaks),
+              ("other_hist_plain_peaks", other_orient_peaks), ("other_hist", other_orient))
+    for tname, timer in timers2.items():
+        for side, fn in turns6:
+            row.setdefault(f"{side}_{tname}", []).append(timer(fn, k6_args))
+    out["orient_leaves"] = row
+    print(f"orient_leaves: {json.dumps(row)}", flush=True)
 
     # K3 `shift` over one fused leaves flow: graph-replayed on the candidates
     # of each octave of frame A, summed and counted twice (two frames).

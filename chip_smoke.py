@@ -16,14 +16,22 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    could take (``bound_ms``) and, where one PyTorch call computes the same
    function, that call's time (``library_ms``; the port never calls it).
    K3 in its samplers, also on the octave-0 keypoints of the dead-leaves
-   frame (the main path's shape) and run twice for equal bits;
+   frame (the main path's shape) and run twice for equal bits; K6 with its
+   peak search inside (the peaks equal to ``histogram_peaks`` of its own
+   histograms); K2 equal to plain at the five octave shapes. First of all the
+   card's launch floor: an empty kernel graph-replayed at one block and at
+   K2's and K6's grids (``floor_ms`` on every row);
    the patch-acquisition kernels (P1) on the benchmark's own inputs; the
    eight capability probes (P2).
 4. Main path, fused: the reference demo flow on two synthetic 1920x1080
    frames (frame B is frame A warped by a known homography) -- extract,
    match, RANSAC, refinement -- with the launch counters set to 0 just
    before it and read just after; the refined homography must map the frame
-   corners within 1 px of the truth.
+   corners within 1 px of the truth. ``extract_sift`` replays one captured
+   CUDA graph per (shape, params): every flow's two ``SiftData`` must equal
+   the eager run's (``utils.jit.disable_graphs``) field by field and count
+   the same launches, and extraction is timed both ways, by CUDA events and
+   by the host's clock.
 4b. Main path, split: the flow with ``use_fused=False,
    use_pallas_compact=True`` (compaction, orientation-histogram and
    descriptor kernels in place of the fused one) on the blocks pair, its
@@ -38,7 +46,11 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    Then the device time of one fused leaves flow without the host's
    dispatch: K1, K2 and K3 graph-replayed at the shapes of each of frame
    A's five octaves, K4 on the flow's own sets, summed over two extractions
-   and one match, beside the launches of that flow.
+   and one match, beside the launches of that flow. Then the fused leaves
+   frame layer by layer, each graph-replayed (pyramid, K1, compaction, K2,
+   K3, merge; the rest of the whole frame's replay is glue), the kernels a
+   frame launches (``torch.profiler``), and ``extract_sift_throughput`` on
+   four 1920x1080 frames in one program against four single calls.
 4c. The demo CLI (``cudasift_tpu_torch.cli``) on the card, in-process, on
    the dead-leaves pair written as PGM files; then the patch-acquisition
    benchmark and the probe runner, each with the counters at 0.
@@ -159,11 +171,11 @@ def main() -> int:
     from cudasift_tpu_torch.ops.cuda import (FUSED_PATH, KERNELS, LIBRARY, SPLIT_PATH, acquire,
                                              compact, descriptor, dog, match, orient,
                                              orient_desc, probes, refine)
-    from cudasift_tpu_torch.pipeline import _compact
-    from cudasift_tpu_torch.utils import native, synth
+    from cudasift_tpu_torch.pipeline import _compact, _extract_octave
+    from cudasift_tpu_torch.utils import jit, native, synth
     from cudasift_tpu_torch.utils.build import build
     from cudasift_tpu_torch.utils.io import read_pgm, write_pgm
-    from cudasift_tpu_torch.utils.timers import time_ms, time_ms_graph, time_ms_loop
+    from cudasift_tpu_torch.utils.timers import time_fn, time_ms, time_ms_graph, time_ms_loop
 
     dev = torch.device("cuda", 0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -181,6 +193,22 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.1f} s -> {[p.name for p in libs]} + host codec")
 
     # ---- 3. Each kernel against its plain version ------------------------
+    # The launch floor first: an empty kernel, graph-replayed 100 times, at
+    # one block and at the grids of the two launch-bound kernels of the flows
+    # (K2: a warp a block; K6: four slots a block of 128 threads; 5120 slots
+    # at octave 0 of a 1920x1080 frame). No kernel of that grid can take less;
+    # a kernel's time is read against the larger of this and its bound.
+    floor_grids = {"one_block": (1, 32), "refine": (5120 // 32, 32), "orient": (5120 // 4, 128)}
+    floors = {name: time_ms_graph(probes.launch_floor, dev, *grid)
+              for name, grid in floor_grids.items()}
+    results = {"probe_launch_floor": dict(
+        max_abs_err=0.0, ms=time_ms(probes.launch_floor, dev),
+        graph_ms=floors["one_block"], plain_ms=time_ms(probes.launch_floor_plain, dev),
+        bound=bound(0, 0), library_ms=None,
+        floor_by_grid={name: dict(blocks=g[0], threads=g[1], graph_ms=floors[name])
+                       for name, g in floor_grids.items()})}
+    log(f"launch floor (empty kernel, graph-replayed): {json.dumps(floors)} ms")
+
     params = ct.SiftParams(num_octaves=5, init_blur=1.0, thresh=3.0, max_pts=32768)
     frame_a = synth.make_test_image(H, W, SEED)
     h_true = synth.known_homography(H, W)
@@ -203,7 +231,6 @@ def main() -> int:
     bases = octave_bases(img_a)
     leaf_bases = octave_bases(leaf_a)
     taps = params.laplace_kernels
-    results = {}
 
     # K1 on the octave-0 base and on octave 2. Tolerance: none, both outputs
     # equal (the kernel keeps the plain version's order of operations).
@@ -444,34 +471,54 @@ def main() -> int:
     pk = torch.arange(cap0, device=dev) < live0
     sc0 = torch.where(pk, f0["scale"], 1.0)
     k6_args = (lbase0, f0["xpos"], f0["ypos"], sc0, live0)
-    kh = orient.orientation_histograms(*k6_args)
-    ph = orient.orientation_histograms_plain(*k6_args)
+    kh, kp1, kp2, kh2 = orient.orientation_peaks(*k6_args)
+    ph, pp1, _, _ = orient.orientation_peaks_plain(*k6_args)
     require(nl0 > 0 and torch.allclose(kh, ph, rtol=1e-5, atol=1e-6),
             f"K6 histograms differ: max abs {float((kh - ph).abs().max())}")
-    require(not kh[nl0:].any(), "K6 wrote past the count")
-    kp1 = orient_plain.histogram_peaks(kh)[0][:nl0]
-    pp1 = orient_plain.histogram_peaks(ph)[0][:nl0]
-    dp = (kp1 - pp1).abs()
+    require(not kh[nl0:].any() and not kp1[nl0:].any() and not kp2[nl0:].any()
+            and not kh2[nl0:].any(), "K6 wrote past the count")
+    # The peaks inside the kernel: those of histogram_peaks on the kernel's
+    # own histograms, equal; against the plain version's (whose histograms
+    # differ in the last bits) within 1e-3 deg on >= 99% of the live slots.
+    own = orient_plain.histogram_peaks(kh)
+    require(all(torch.equal(a[:nl0], b[:nl0]) for a, b in zip((kp1, kp2, kh2), own)),
+            f"K6 peaks differ from histogram_peaks of its histograms: primary max abs "
+            f"{float((kp1 - own[0])[:nl0].abs().max())}, secondary "
+            f"{float((kp2 - own[1])[:nl0].abs().max())}, has_second on "
+            f"{int((kh2 != own[2])[:nl0].sum())}")
+    again6 = orient.orientation_peaks(*k6_args)
+    require(all(torch.equal(a, b) for a, b in zip((kh, kp1, kp2, kh2), again6))
+            and torch.equal(kh, orient.orientation_histograms(*k6_args)),
+            "K6 is not deterministic")
+    dp = (kp1 - pp1).abs()[:nl0]
     dp = torch.minimum(dp, 360.0 - dp)
     share6 = float((dp < 1e-3).float().mean())
     require(share6 >= 0.99, f"K6 peaks agree on {share6}")
     k6_err = float((kh - ph).abs().max())
-    log(f"K6: {nl0} live of {cap0} slots, histogram max abs err {k6_err:.3g}, "
-        f"primary peaks within 1e-3 deg on {share6:.4f}")
+    log(f"K6: {nl0} live of {cap0} slots, histogram max abs err {k6_err:.3g}, peaks equal to "
+        f"histogram_peaks of its histograms ({int(kh2.sum())} second peaks), primary peaks "
+        f"within 1e-3 deg of plain on {share6:.4f}, two runs equal")
     # Bound: positions, scales and the count in, each live keypoint's
-    # 17 x 17 image square, the (slots, 36) histograms out; about 40
-    # operations for each of 121 samples per live keypoint.
+    # 17 x 17 image square, the (slots, 32) histograms and the peaks (two
+    # floats and a flag) out; about 40 operations for each of 121 samples
+    # per live keypoint. Times are of the call with the peaks;
+    # hist_graph_ms is the histogram-only call.
     results["orient"] = dict(
-        max_abs_err=k6_err, ms=time_ms(orient.orientation_histograms, *k6_args),
-        graph_ms=time_ms_graph(orient.orientation_histograms, *k6_args),
-        plain_ms=time_ms(orient.orientation_histograms_plain, *k6_args),
-        bound=bound(12 * cap0 + 4 + nl0 * 17 * 17 * 4 + cap0 * 36 * 4, nl0 * 121 * 40),
+        max_abs_err=k6_err, ms=time_ms(orient.orientation_peaks, *k6_args),
+        graph_ms=time_ms_graph(orient.orientation_peaks, *k6_args),
+        hist_graph_ms=time_ms_graph(orient.orientation_histograms, *k6_args),
+        plain_ms=time_ms(orient.orientation_peaks_plain, *k6_args),
+        bound=bound(12 * cap0 + 4 + nl0 * 17 * 17 * 4 + cap0 * (32 * 4 + 9), nl0 * 121 * 40),
         library_ms=None)
+    log(f"K6 graph-replayed: with peaks {results['orient']['graph_ms']:.5f} ms, histograms "
+        f"only {results['orient']['hist_graph_ms']:.5f} ms, floor at its grid "
+        f"{floors['orient']:.5f} ms; K2 {results['refine']['graph_ms']:.5f} ms, floor at its "
+        f"grid {floors['refine']:.5f} ms")
 
     # K7 on those keypoints at their K6 orientations. Tolerance: row max-abs
     # error <= 1e-5, unit norms within 1e-4, zeros past the count, two runs
     # bit-identical.
-    ori0 = torch.where(pk, orient_plain.histogram_peaks(kh)[0], 0.0)
+    ori0 = kp1
     k7_args = (lbase0, f0["xpos"], f0["ypos"], sc0, ori0, live0)
     kd = descriptor.extract_descriptors(*k7_args)
     pd = descriptor.extract_descriptors_plain(*k7_args)
@@ -662,11 +709,15 @@ def main() -> int:
         h2, nfit, _ = ct.improve_homography(m, h1, 5, 0.0, 0.80, 3.0)
         return da, db, m, h1, nm, h2, nfit
 
+    timings = {}
+
     def run_flow(label, fparams, pair, path, absent=(), gate_homography=True):
         """Drive the demo flow once on a frame ``pair`` with every launch
         counter at 0, require each kernel of ``path`` launched and none of
         ``absent``, gate the results (the corner error only with
-        ``gate_homography``), and time extraction and matching."""
+        ``gate_homography``), hold the two extractions (replayed from their
+        captured program) against the eager run, and time extraction both
+        ways and matching."""
         torch.cuda.synchronize()
         for k in KERNELS:
             k.launches = 0
@@ -690,13 +741,43 @@ def main() -> int:
         require(err2 < 1.0 or not gate_homography,
                 f"{label}: refined homography corner error {err2} px >= 1.0")
 
-        extract_ms = time_ms(ct.extract_sift, pair[0], fparams, iters=5, warmup=1)
+        # The same two extractions dispatched from the host: every field of
+        # both SiftData equal, and the same launches counted.
+        with jit.disable_graphs():
+            for k in KERNELS:
+                k.launches = 0
+            ea, eb = ct.extract_sift(pair[0], fparams), ct.extract_sift(pair[1], fparams)
+            torch.cuda.synchronize()
+            eager_counts = {k.name: k.launches for k in LIBRARY}
+        for name, got, ref in (("A", da, ea), ("B", db, eb)):
+            for f in ct.SiftData.__dataclass_fields__:
+                require(torch.equal(getattr(got, f), getattr(ref, f)),
+                        f"{label}: frame {name} {f} differs between the graph and the eager run")
+        flow_counts = {k.name: launches[k.name] for k in LIBRARY if k is not match.KERNEL}
+        eager_counts.pop(match.KERNEL.name)
+        require(flow_counts == eager_counts,
+                f"{label}: launches differ, replayed {flow_counts}, eager {eager_counts}")
+
+        # Extraction timed as dispatched from the host and as replayed, each by
+        # CUDA events around the call and by the host's clock around call and
+        # wait.
+        extract = lambda: ct.extract_sift(pair[0], fparams)  # noqa: E731
+        with jit.disable_graphs():
+            eager_ms = time_ms(extract, iters=5, warmup=1)
+            eager_wall = time_fn(extract, iters=5, warmup=1)
+        extract_ms = time_ms(extract, iters=5, warmup=1)
+        extract_wall = time_fn(extract, iters=5, warmup=1)
         match_ms = time_ms(ct.match_sift_data, da, db, iters=5, warmup=1)
+        timings[label] = dict(eager_ms=eager_ms, eager_wall_ms=eager_wall,
+                              graph_ms=extract_ms, graph_wall_ms=extract_wall)
         log(f"{label}: num_pts A {n_a} B {int(db.num_pts)}, overflow A "
             f"{int(da.overflow)} B {int(db.overflow)}, matches (ambiguity < 0.8) "
             f"{matched}, RANSAC inliers {int(nm)}, numFit {int(nfit)}, corner error "
-            f"RANSAC {err1:.4f} px refined {err2:.4f} px")
-        log(f"{label}: extraction {extract_ms:.3f} ms per 1920x1080 frame, "
+            f"RANSAC {err1:.4f} px refined {err2:.4f} px; graph equal to eager on both "
+            f"frames, launches equal")
+        log(f"{label}: extraction per 1920x1080 frame eager {eager_ms:.3f} ms (events) "
+            f"{eager_wall:.3f} ms (host clock), replayed {extract_ms:.3f} ms (events) "
+            f"{extract_wall:.3f} ms (host clock); "
             f"match {match_ms:.3f} ms ({n_a} x {int(db.num_pts)} of 32768 slots)")
         return da, db, launches
 
@@ -772,6 +853,10 @@ def main() -> int:
         oidx, ocount = detect.compact_mask(omask, cap_o)
         k2_o = (odog, oidx, ocount, params.edge_limit, low_o)
         oc = refine.refine_candidates(*k2_o)
+        op = detect.refine_candidates(*k2_o)
+        require(all(torch.equal(getattr(oc, f), getattr(op, f))
+                    for f in ("xpos", "ypos", "scale", "sharpness", "edgeness", "valid")),
+                f"K2 differs from plain at octave {o} {tuple(obase.shape)}")
         k3_o = (obase, oc.xpos, oc.ypos, torch.where(oc.valid, oc.scale, 1.0), oc.valid)
         row = dict(octave=o, shape=list(obase.shape), slots=cap_o, live=int(oc.valid.sum()),
                    dog=time_ms_graph(dog.dog_and_mask, *k1_o),
@@ -791,6 +876,8 @@ def main() -> int:
     flow_ms["match"] = time_ms_graph(match.match_descriptors, *lsets, n=20)
     for name, ms in flow_ms.items():
         results[name]["flow_graph_ms"] = ms
+    log(f"K2 equal to plain (every field, torch.equal) at the five octave shapes "
+        f"{[tuple(r['shape']) for r in octave_rows]}")
     log(f"fused leaves flow, per octave (graph-replayed ms): {json.dumps(octave_rows)}")
     log(f"fused leaves flow, device time of its kernels without dispatch: "
         f"{sum(flow_ms.values()):.4f} ms = {json.dumps(flow_ms)}; launches of the flow "
@@ -799,6 +886,93 @@ def main() -> int:
         f"{results['orient_desc']['leaves']['graph_ms']:.4f} ms, fast "
         f"{results['orient_desc_fast']['leaves']['graph_ms']:.4f} ms, bound "
         f"{results['orient_desc']['leaves']['bound_ms']:.4f} ms")
+
+    # The fused leaves frame layer by layer, each layer's device time without
+    # dispatch (graph-replayed 20 times): the pyramid, then per octave K1, the
+    # plain compaction, K2 and K3 (summed over the octaves), then the merge
+    # (concatenation and compaction into max_pts); what is left of the whole
+    # frame's replay (events around one call: input copy, graph, output
+    # clones) is the octave glue (candidate fields, scaling, validity masks).
+    oct_out = []
+    for o in reversed(range(params.num_octaves)):
+        obase = leaf_bases[o]
+        cap_o = params.candidate_capacity(*obase.shape, o)
+        oct_out.append(_extract_octave(obase, taps[o], params, float(2 ** o), cap_o)[:2])
+
+    def merge():
+        merged = {k: torch.cat([f[k] for f, _ in oct_out]) for k in oct_out[0][0]}
+        return _compact(merged, torch.cat([v for _, v in oct_out]), params.max_pts)
+
+    layers = dict(pyramid=time_ms_graph(octave_bases, leaf_a, n=20),
+                  dog=sum(r["dog"] for r in octave_rows),
+                  compaction=0.0, refine=sum(r["refine"] for r in octave_rows),
+                  orient_desc=sum(r["orient_desc"] for r in octave_rows),
+                  merge=time_ms_graph(merge, n=20))
+    for o in range(params.num_octaves):
+        obase = leaf_bases[o]
+        cap_o = params.candidate_capacity(*obase.shape, o)
+        _, omask = dog.dog_and_mask(obase, taps[o], params.thresh, params.edge_limit)
+        layers["compaction"] += time_ms_graph(detect.compact_mask, omask, cap_o, True, n=20)
+    whole = timings["fused path, leaves"]["graph_ms"]
+    layers["glue"] = whole - sum(layers.values())
+    log(f"fused leaves frame A, device ms by layer (graph-replayed): {json.dumps(layers)}; "
+        f"whole frame replayed {whole:.4f} ms")
+
+    # Kernels a frame puts on the device and their summed device time, eager
+    # and replayed, from torch.profiler: the replay must put the eager run's
+    # kernels on the device, no more and no fewer.
+    def device_kernels(fn):
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA and "memcpy" not in e.name.lower()
+               and "memset" not in e.name.lower()]
+        return dict(kernels=len(evs),
+                    device_ms=sum(e.time_range.elapsed_us() for e in evs) / 1e3)
+
+    for label, fparams in (("fused", params), ("split", split)):
+        with jit.disable_graphs():
+            eager_k = device_kernels(lambda: ct.extract_sift(leaf_a, fparams))
+        graph_k = device_kernels(lambda: ct.extract_sift(leaf_a, fparams))
+        require(eager_k["kernels"] > 0, f"{label}: torch.profiler recorded no device kernel")
+        require(graph_k["kernels"] == eager_k["kernels"],
+                f"{label}: {graph_k['kernels']} kernels replayed, {eager_k['kernels']} eager")
+        log(f"{label} leaves frame A, kernels on the device (torch.profiler): eager "
+            f"{json.dumps(eager_k)}, replayed {json.dumps(graph_k)}")
+
+    # extract_sift_throughput: four 1920x1080 frames in one program, equal to
+    # four single calls field by field, timed against them (host clock around
+    # call and wait; frames a second).
+    frames4 = torch.stack([leaf_a, leaf_b, img_a, img_b])
+    singles = [ct.extract_sift(f, params) for f in frames4]
+    for k in KERNELS:
+        k.launches = 0
+    batch = ct.extract_sift_throughput(frames4, params)      # eager, then captured
+    batch = ct.extract_sift_throughput(frames4, params)      # replayed
+    torch.cuda.synchronize()
+    require(all(k.launches == 2 * 4 * params.num_octaves
+                for k in (dog.KERNEL, refine.KERNEL, orient_desc.KERNEL)),
+            f"throughput launches { {k.name: k.launches for k in FUSED_PATH} }")
+    for i, single in enumerate(singles):
+        for f in ct.SiftData.__dataclass_fields__:
+            require(torch.equal(getattr(batch, f)[i], getattr(single, f)),
+                    f"extract_sift_throughput: frame {i} {f} differs from the single call")
+    batch_wall = time_fn(lambda: ct.extract_sift_throughput(frames4, params), iters=5, warmup=1)
+    single_wall = time_fn(lambda: [ct.extract_sift(f, params) for f in frames4], iters=5, warmup=1)
+    with jit.disable_graphs():
+        eager4_wall = time_fn(lambda: ct.extract_sift_throughput(frames4, params), iters=5,
+                              warmup=1)
+    timings["throughput, 4 frames"] = dict(batch_wall_ms=batch_wall, single_wall_ms=single_wall,
+                                           eager_wall_ms=eager4_wall)
+    log(f"extract_sift_throughput, 4 frames of 1920x1080 in one program: equal to four single "
+        f"calls; {batch_wall:.3f} ms a call = {4e3 / batch_wall:.1f} frames/s, four replayed "
+        f"single calls {single_wall:.3f} ms = {4e3 / single_wall:.1f} frames/s, dispatched from "
+        f"the host {eager4_wall:.3f} ms = {4e3 / eager4_wall:.1f} frames/s (host clock, points "
+        f"{batch.num_pts.tolist()})")
 
     # K5 on the split flow's own descriptor sets against K4, with the
     # agreement rule of phase 3.
@@ -907,10 +1081,12 @@ def main() -> int:
     torch.cuda.synchronize()
     for k in KERNELS:
         k.launches = 0
+    probes.LAUNCH_FLOOR.launches = 0
     acquire.acquire_bench(*a_args)
     probe_results = probes.run_probes(dev)
+    probes.launch_floor(dev)
     torch.cuda.synchronize()
-    for k in tuple(acquire.KERNELS.values()) + probes.KERNELS:
+    for k in tuple(acquire.KERNELS.values()) + probes.KERNELS + (probes.LAUNCH_FLOOR,):
         launches[k.name] = k.launches
         require(k.launches > 0, f"{k.name} did not launch in its run")
     for name, (ok, err) in probe_results.items():
@@ -918,7 +1094,7 @@ def main() -> int:
         log(f"PASS {name}: error {err:.3g}")
 
     rows = []
-    by_name = {k.name: k for k in KERNELS}
+    by_name = {k.name: k for k in KERNELS + (probes.LAUNCH_FLOOR,)}
     by_name["orient_desc_fast"] = orient_desc.KERNEL
     for name, r in results.items():
         k = by_name[name]
@@ -929,8 +1105,11 @@ def main() -> int:
                      "graph_ms": r.pop("graph_ms"),
                      "plain_ms": r.pop("plain_ms"), "bound_ms": r["bound"][0],
                      "bound_by": r.pop("bound")[1], "library_ms": r.pop("library_ms"),
+                     "floor_ms": floors.get(name, floors["one_block"]),
                      **r})   # N-call times, the matchers' main-path shape
-    require(len(rows) == len(KERNELS) + 1, f"{len(rows)} kernel rows for {len(KERNELS)} kernels")
+    # K1-K8, K3's fast sampler, P1, P2 and the launch-floor launcher.
+    require(len(rows) == len(KERNELS) + 2, f"{len(rows)} kernel rows for {len(KERNELS)} kernels")
+    log(f"extraction timings (ms): {json.dumps(timings)}")
     log(f"wall time {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

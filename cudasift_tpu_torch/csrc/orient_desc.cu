@@ -64,7 +64,6 @@
 
 namespace {
 
-using sift::atan2_poly;
 using sift::FULL_MASK;
 using sift::tent;
 
@@ -113,55 +112,6 @@ __device__ __forceinline__ void stage_patch(Patch& patch, const float* __restric
 #pragma unroll
         for (int j = 0; j < PW / 32; ++j) patch[warp + WARPS * i][lane + 32 * j] = v[i][j];
     if (edge) patch[er][ec] = ev;
-}
-
-// Arg-max over the warp's 32 values (lane = index); the lowest index wins a
-// tie. Every lane gets the result.
-__device__ __forceinline__ void warp_argmax(float& v, int& i) {
-#pragma unroll
-    for (int m = 16; m > 0; m /= 2) {
-        const float ov = __shfl_xor_sync(FULL_MASK, v, m);
-        const int oi = __shfl_xor_sync(FULL_MASK, i, m);
-        if (ov > v || (ov == v && oi < i)) {
-            v = ov;
-            i = oi;
-        }
-    }
-}
-
-// Parabolic interpolation of the peak at bin i (value m) of the smoothed
-// histogram sm (lane = bin), in degrees.
-__device__ __forceinline__ float peak_degrees(float sm, int i, float m) {
-    const float v1 = __shfl_sync(FULL_MASK, sm, (i + 1) & 31);
-    const float v2 = __shfl_sync(FULL_MASK, sm, (i + 31) & 31);
-    const float denom = 2.0f * m - v1 - v2;
-    const float peak = (float)i + 0.5f * (v1 - v2) / (denom == 0.0f ? 1e-30f : denom);
-    return 11.25f * (peak < 0.0f ? peak + 32.0f : peak);
-}
-
-// The two orientations of the histogram whose four partial sums are in
-// `part` (lane = bin): smoothing, peaks, the two largest, interpolation.
-// Every lane gets the result; nori is 2 when the second peak counts.
-__device__ __forceinline__ void find_peaks(const float (*part)[32], int lane, float& o0,
-                                           float& o1, int& nori) {
-    const float hist = ((part[0][lane] + part[1][lane]) + part[2][lane]) + part[3][lane];
-    const float hm1 = __shfl_sync(FULL_MASK, hist, (lane + 31) & 31);
-    const float hp1 = __shfl_sync(FULL_MASK, hist, (lane + 1) & 31);
-    const float hm2 = __shfl_sync(FULL_MASK, hist, (lane + 30) & 31);
-    const float hp2 = __shfl_sync(FULL_MASK, hist, (lane + 2) & 31);
-    const float sm = 6.0f * hist + 4.0f * (hm1 + hp1) + hm2 + hp2;
-    const float sm_m1 = __shfl_sync(FULL_MASK, sm, (lane + 31) & 31);
-    const float sm_p1 = __shfl_sync(FULL_MASK, sm, (lane + 1) & 31);
-    const float peak = (sm > sm_m1 && sm >= sm_p1) ? sm : 0.0f;
-    float max1 = peak;
-    int i1 = lane;
-    warp_argmax(max1, i1);
-    float max2 = lane == i1 ? -INFINITY : peak;
-    int i2 = lane;
-    warp_argmax(max2, i2);
-    o0 = peak_degrees(sm, i1, max1);
-    o1 = peak_degrees(sm, i2, max2);
-    nori = max2 > 0.8f * max1 ? 2 : 1;
 }
 
 template <int MODE>
@@ -233,9 +183,7 @@ orient_desc_kernel(const float* __restrict__ img, int h, int w,
             };
             const float dx = grid(uy + 1, ux + 2) - grid(uy + 1, ux);
             const float dy = grid(uy + 2, ux + 1) - grid(uy, ux + 1);
-            const float theta = atan2_poly(dy, dx);
-            const int b = (int)floorf(16.0f * theta / 3.1416f + 16.5f);
-            bin = b > 31 ? 0 : b;
+            bin = sift::orientation_bin(dy, dx);
             const float i2s2 = -1.0f / (4.5f * sc * sc);
             const float du = (float)(ux - 5), dv = (float)(uy - 5);
             const float dist2 = du * du + dv * dv;
@@ -257,7 +205,8 @@ orient_desc_kernel(const float* __restrict__ img, int h, int w,
     if (warp == 0) {
         float o0, o1;
         int n;
-        find_peaks(part, lane, o0, o1, n);
+        const float hist = ((part[0][lane] + part[1][lane]) + part[2][lane]) + part[3][lane];
+        sift::find_peaks(hist, lane, o0, o1, n);
         if (lane < 2) {
             const float th = (float)(2.0 * 3.1415 / 360.0) * (lane == 0 ? o0 : o1);
             Rotation& r = rot[lane];

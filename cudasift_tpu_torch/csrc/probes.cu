@@ -21,7 +21,11 @@
 //   small_dot           a float32 product by fused multiply-adds on the
 //                       CUDA cores (f32_small_dot).
 //
-// Bound: each moves a few KB; launch latency sets its time.
+// Bound: each moves a few KB; launch latency sets its time. What that
+// latency is on this card, launch_floor measures: a kernel with an empty
+// body at a grid of the caller's choice, the least any launch of that grid
+// can take. It stands beside the probes as the TPU file's probe() harness
+// does: the cost of running anything at all.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -164,7 +168,16 @@ __global__ void small_dot_kernel(const float* __restrict__ a, const float* __res
     out[e] = acc;
 }
 
+// Nothing: what is left of a kernel when its work is taken away.
+__global__ void launch_floor_kernel() {}
+
 }  // namespace
+
+extern "C" int probe_launch_floor(int blocks, int threads, cudaStream_t stream) {
+    if (blocks < 1 || threads < 1 || threads > 1024) return (int)cudaErrorInvalidValue;
+    launch_floor_kernel<<<blocks, threads, 0, stream>>>();
+    return (int)cudaGetLastError();
+}
 
 extern "C" int probe_slice_rows(const float* img, int rows, int cols, const int* off,
                                 int out_rows, float* out, cudaStream_t stream) {

@@ -2,18 +2,24 @@
 //
 // Replaces the TPU kernel
 // cudasift_tpu/ops/pallas/refine.py:refine_candidates_pallas
-// (_refine_kernel/_refine_body). One thread per candidate slot reads its
-// 3x3x3 DoG cube straight from the (7, H, W) stack, solves for the subpixel
-// offset with the Hessian adjugate, falls back to per-axis Newton steps when
-// the offset leaves +-0.5, and applies the edge test, the scale formula
-// 2^(s/5) * 2^(pds/5) and the lowest-scale cut. Slots at or past the live
-// count write zeros and valid = 0. The expressions are those of
+// (_refine_kernel/_refine_body). One thread per candidate slot reads the 19
+// values of its 3x3x3 DoG cube that the formulas use straight from the
+// (7, H, W) stack, solves for the subpixel offset with the Hessian adjugate,
+// falls back to per-axis Newton steps when the offset leaves +-0.5, and
+// applies the edge test, the scale formula 2^(s/5) * 2^(pds/5) and the
+// lowest-scale cut. Slots at or past the live count write zeros and
+// valid = 0 and leave. The expressions are those of
 // ops/detect.refine_candidates; build with -fmad=false so they round alike.
 //
-// Bound: latency of the 27 scattered reads per candidate (a few thousand
-// live candidates per octave, a few microseconds of work). The DMA-tile and
-// lane-roll layout of the TPU kernel has no purpose here: the cube is read
-// through the L1/L2 caches directly.
+// Bound: one dependent chain a candidate (count and index, cube, six stores)
+// and the launch; a few thousand live candidates an octave move a few hundred
+// KB. So the design shortens the chain and spreads it: 32-bit index
+// arithmetic (the wrapper refuses a stack whose 7 * H * W does not fit; a
+// 64-bit division is emulated in some eighty instructions), the 19 loads
+// issued together before any use, and a warp a block, so that an octave's
+// slots (160 blocks for 5120) reach every SM. The DMA-tile and lane-roll
+// layout of the TPU kernel has no purpose here: the cube is read through the
+// L1/L2 caches directly.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -21,7 +27,7 @@
 
 namespace {
 
-constexpr int THREADS = 128;
+constexpr int THREADS = 32;
 
 __global__ void __launch_bounds__(THREADS)
 refine_kernel(const float* __restrict__ dog, const int* __restrict__ flat_idx,
@@ -30,68 +36,80 @@ refine_kernel(const float* __restrict__ dog, const int* __restrict__ flat_idx,
               uint8_t* __restrict__ valid_out) {
     const int i = blockIdx.x * THREADS + threadIdx.x;
     if (i >= k) return;
-    float xo = 0.0f, yo = 0.0f, so = 0.0f, sho = 0.0f, eo = 0.0f;
-    bool valid = false;
-    if (i < *count) {
-        const long long hw = (long long)h * w;
-        const long long fi = flat_idx[i];
-        const long long s = fi / hw;
-        const long long rem = fi - s * hw;
-        long long y = rem / w;
-        long long x = rem - y * w;
-        y = min(max(y, 1LL), (long long)h - 2);
-        x = min(max(x, 1LL), (long long)w - 2);
-        auto at = [&](int ds, int dy, int dx) {
-            return dog[(s + 1 + ds) * hw + (y + dy) * w + (x + dx)];
-        };
-        const float val = at(0, 0, 0);
-        const float dxx = 2.0f * val - at(0, 0, -1) - at(0, 0, 1);
-        const float dyy = 2.0f * val - at(0, -1, 0) - at(0, 1, 0);
-        const float dxy = 0.25f * (at(0, 1, 1) + at(0, -1, -1) - at(0, -1, 1) - at(0, 1, -1));
-        const float tra = dxx + dyy;
-        const float det = dxx * dyy - dxy * dxy;
-        const bool edge_ok = tra * tra < edge_limit * det;
-        const float edge = tra * tra / (det == 0.0f ? 1e-30f : det);
-
-        const float dx_ = 0.5f * (at(0, 0, 1) - at(0, 0, -1));
-        const float dy_ = 0.5f * (at(0, 1, 0) - at(0, -1, 0));
-        const float ds_ = 0.5f * (at(-1, 0, 0) - at(1, 0, 0));
-        const float dss = 2.0f * val - at(1, 0, 0) - at(-1, 0, 0);
-        const float dxs = 0.25f * (at(1, 0, 1) + at(-1, 0, -1) - at(-1, 0, 1) - at(1, 0, -1));
-        const float dys = 0.25f * (at(1, 1, 0) + at(-1, -1, 0) - at(1, -1, 0) - at(-1, 1, 0));
-
-        const float idxx = dyy * dss - dys * dys;
-        const float idxy = dys * dxs - dxy * dss;
-        const float idxs = dxy * dys - dyy * dxs;
-        const float denom = idxx * dxx + idxy * dxy + idxs * dxs;
-        const float idet = 1.0f / (denom == 0.0f ? 1e-30f : denom);
-        const float idyy = dxx * dss - dxs * dxs;
-        const float idys = dxy * dxs - dxx * dys;
-        const float idss = dxx * dyy - dxy * dxy;
-        float pdx = idet * (idxx * dx_ + idxy * dy_ + idxs * ds_);
-        float pdy = idet * (idxy * dx_ + idyy * dy_ + idys * ds_);
-        float pds = idet * (idxs * dx_ + idys * dy_ + idss * ds_);
-        if (fabsf(pdx) > 0.5f || fabsf(pdy) > 0.5f || fabsf(pds) > 0.5f) {
-            pdx = dx_ / (dxx == 0.0f ? 1e-30f : dxx);
-            pdy = dy_ / (dyy == 0.0f ? 1e-30f : dyy);
-            pds = ds_ / (dss == 0.0f ? 1e-30f : dss);
-        }
-        const float dval = 0.5f * (dx_ * pdx + dy_ * pdy + ds_ * pds);
-        const float sc = exp2f((float)s * 0.2f) * exp2f(pds * 0.2f);
-        valid = edge_ok && (sc >= lowest_scale);
-        if (valid) {
-            xo = (float)x + pdx;
-            yo = (float)y + pdy;
-            so = sc;
-            sho = val + dval;
-            eo = edge;
-        }
+    // The index before the count is known (slot i exists either way), so
+    // that the two reads share one round trip.
+    const int fi = __ldg(flat_idx + i);
+    if (i >= *count) {
+        out[i] = 0.0f;
+        out[k + i] = 0.0f;
+        out[2 * k + i] = 0.0f;
+        out[3 * k + i] = 0.0f;
+        out[4 * k + i] = 0.0f;
+        valid_out[i] = 0;
+        return;
     }
-    out[i] = xo;
-    out[k + i] = yo;
-    out[2 * k + i] = so;
-    out[3 * k + i] = sho;
-    out[4 * k + i] = eo;
+    const int hw = h * w;
+    const int s = fi / hw;
+    const int rem = fi - s * hw;
+    int y = rem / w;
+    int x = rem - y * w;
+    y = min(max(y, 1), h - 2);
+    x = min(max(x, 1), w - 2);
+    // The cube around DoG plane s + 1: c the centre plane, d the plane below
+    // (ds = -1), u the plane above (ds = +1); suffixes are (dy, dx) with m
+    // for -1 and p for +1, a single letter where the other offset is 0.
+    const float* c = dog + ((s + 1) * hw + y * w + x);
+    const float* d = c - hw;
+    const float* u = c + hw;
+    const float val = __ldg(c);
+    const float cxm = __ldg(c - 1), cxp = __ldg(c + 1);
+    const float cym = __ldg(c - w), cyp = __ldg(c + w);
+    const float cmm = __ldg(c - w - 1), cmp = __ldg(c - w + 1);
+    const float cpm = __ldg(c + w - 1), cpp = __ldg(c + w + 1);
+    const float d00 = __ldg(d), dxm = __ldg(d - 1), dxp = __ldg(d + 1);
+    const float dym = __ldg(d - w), dyp = __ldg(d + w);
+    const float u00 = __ldg(u), uxm = __ldg(u - 1), uxp = __ldg(u + 1);
+    const float uym = __ldg(u - w), uyp = __ldg(u + w);
+
+    const float dxx = 2.0f * val - cxm - cxp;
+    const float dyy = 2.0f * val - cym - cyp;
+    const float dxy = 0.25f * (cpp + cmm - cmp - cpm);
+    const float tra = dxx + dyy;
+    const float det = dxx * dyy - dxy * dxy;
+    const bool edge_ok = tra * tra < edge_limit * det;
+    const float edge = tra * tra / (det == 0.0f ? 1e-30f : det);
+
+    const float dx_ = 0.5f * (cxp - cxm);
+    const float dy_ = 0.5f * (cyp - cym);
+    const float ds_ = 0.5f * (d00 - u00);
+    const float dss = 2.0f * val - u00 - d00;
+    const float dxs = 0.25f * (uxp + dxm - dxp - uxm);
+    const float dys = 0.25f * (uyp + dym - uym - dyp);
+
+    const float idxx = dyy * dss - dys * dys;
+    const float idxy = dys * dxs - dxy * dss;
+    const float idxs = dxy * dys - dyy * dxs;
+    const float denom = idxx * dxx + idxy * dxy + idxs * dxs;
+    const float idet = 1.0f / (denom == 0.0f ? 1e-30f : denom);
+    const float idyy = dxx * dss - dxs * dxs;
+    const float idys = dxy * dxs - dxx * dys;
+    const float idss = dxx * dyy - dxy * dxy;
+    float pdx = idet * (idxx * dx_ + idxy * dy_ + idxs * ds_);
+    float pdy = idet * (idxy * dx_ + idyy * dy_ + idys * ds_);
+    float pds = idet * (idxs * dx_ + idys * dy_ + idss * ds_);
+    if (fabsf(pdx) > 0.5f || fabsf(pdy) > 0.5f || fabsf(pds) > 0.5f) {
+        pdx = dx_ / (dxx == 0.0f ? 1e-30f : dxx);
+        pdy = dy_ / (dyy == 0.0f ? 1e-30f : dyy);
+        pds = ds_ / (dss == 0.0f ? 1e-30f : dss);
+    }
+    const float dval = 0.5f * (dx_ * pdx + dy_ * pdy + ds_ * pds);
+    const float sc = exp2f((float)s * 0.2f) * exp2f(pds * 0.2f);
+    const bool valid = edge_ok && (sc >= lowest_scale);
+    out[i] = valid ? (float)x + pdx : 0.0f;
+    out[k + i] = valid ? (float)y + pdy : 0.0f;
+    out[2 * k + i] = valid ? sc : 0.0f;
+    out[3 * k + i] = valid ? val + dval : 0.0f;
+    out[4 * k + i] = valid ? edge : 0.0f;
     valid_out[i] = valid ? 1 : 0;
 }
 

@@ -1,6 +1,8 @@
 // Device code shared by the orientation and descriptor kernels (K3, K6, K7):
-// the two atan2 polynomials, the tent weight of a bilinear sample, and the
-// descriptor's trilinear 4x4x8 binning with L2 -> clamp 0.2 -> L2.
+// the two atan2 polynomials, the tent weight of a bilinear sample, the
+// orientation bin of a gradient and the peak search of a 32-bin histogram
+// (K3, K6), and the descriptor's trilinear 4x4x8 binning with L2 -> clamp
+// 0.2 -> L2 (K3, K7).
 //
 // Arithmetic follows the plain versions in ops/texture.py and
 // ops/descriptor.py; the including kernels build with -fmad=false so the
@@ -68,6 +70,63 @@ __device__ __forceinline__ float tent(int p, float s) {
 }
 
 constexpr unsigned FULL_MASK = 0xffffffffu;
+
+// Orientation bin (0..31) of a gradient: floor(16 * theta / 3.1416 + 16.5),
+// the bin past 31 wrapping to 0 (ops/orient.py:orientation_histograms).
+__device__ __forceinline__ int orientation_bin(float dy, float dx) {
+    const float theta = atan2_poly(dy, dx);
+    const int b = (int)floorf(16.0f * theta / 3.1416f + 16.5f);
+    return b > 31 ? 0 : b;
+}
+
+// Arg-max over the warp's 32 values (lane = index), each a float that is
+// not negative or the integer sentinel -1 for "leave this lane out": such
+// floats order as their bit patterns do, so the maximum is one integer warp
+// reduction and the lowest lane that holds it a second one. Every lane gets
+// the result.
+__device__ __forceinline__ void warp_argmax(int bits, int lane, float& v, int& i) {
+    const int m = __reduce_max_sync(FULL_MASK, bits);
+    i = __reduce_min_sync(FULL_MASK, bits == m ? lane : 32);
+    v = __int_as_float(m);
+}
+
+// Parabolic interpolation of the peak at bin i (value m) of the smoothed
+// histogram sm (lane = bin), in degrees.
+__device__ __forceinline__ float peak_degrees(float sm, int i, float m) {
+    const float v1 = __shfl_sync(FULL_MASK, sm, (i + 1) & 31);
+    const float v2 = __shfl_sync(FULL_MASK, sm, (i + 31) & 31);
+    const float denom = 2.0f * m - v1 - v2;
+    const float peak = (float)i + 0.5f * (v1 - v2) / (denom == 0.0f ? 1e-30f : denom);
+    return 11.25f * (peak < 0.0f ? peak + 32.0f : peak);
+}
+
+// The two orientations of a 32-bin histogram held one bin a lane
+// (ops/orient.py:histogram_peaks): circular [1, 4, 6, 4, 1] smoothing from
+// the four neighbour lanes, peaks (above the left neighbour, at or above the
+// right one), the two largest by two arg-max reductions in which the lowest
+// bin wins a tie (the second over the bins other than the first),
+// interpolation. Every lane gets the result;
+// nori is 2 when the second peak is above 0.8 of the first.
+__device__ __forceinline__ void find_peaks(float hist, int lane, float& o0, float& o1,
+                                           int& nori) {
+    const float hm1 = __shfl_sync(FULL_MASK, hist, (lane + 31) & 31);
+    const float hp1 = __shfl_sync(FULL_MASK, hist, (lane + 1) & 31);
+    const float hm2 = __shfl_sync(FULL_MASK, hist, (lane + 30) & 31);
+    const float hp2 = __shfl_sync(FULL_MASK, hist, (lane + 2) & 31);
+    const float sm = 6.0f * hist + 4.0f * (hm1 + hp1) + hm2 + hp2;
+    const float sm_m1 = __shfl_sync(FULL_MASK, sm, (lane + 31) & 31);
+    const float sm_p1 = __shfl_sync(FULL_MASK, sm, (lane + 1) & 31);
+    const float peak = (sm > sm_m1 && sm >= sm_p1) ? sm : 0.0f;
+    // A histogram of weights is not negative, so neither is sm nor peak.
+    const int bits = __float_as_int(peak);
+    float max1, max2;
+    int i1, i2;
+    warp_argmax(bits, lane, max1, i1);
+    warp_argmax(lane == i1 ? -1 : bits, lane, max2, i2);
+    o0 = peak_degrees(sm, i1, max1);
+    o1 = peak_degrees(sm, i2, max2);
+    nori = max2 > 0.8f * max1 ? 2 : 1;
+}
 
 // Gaussian window exp(-(u^2 + v^2) / 128) of the grid sample at distance
 // (u, v) = (a + 0.5, b + 0.5) from the grid centre, entry 8a + b: a constant

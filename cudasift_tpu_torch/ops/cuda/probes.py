@@ -6,7 +6,10 @@ TPU. Each CUDA kernel (``csrc/probes.cu``) does on Hopper what its probe
 checks there; each wrapper has its launch count and a plain PyTorch version
 that CPU tensors take. ``PROBES`` makes each probe's inputs as the TPU probe
 makes them and holds the result to what that probe asserts; ``run_probes``
-runs all eight on one device.
+runs all eight on one device. Beside them ``launch_floor`` launches a kernel
+with an empty body: graph-replayed, its time is the least any kernel of that
+grid takes on the card, the floor that a launch-bound kernel's time is read
+against.
 """
 
 from __future__ import annotations
@@ -38,6 +41,27 @@ ROLL_COLS = _kernel("roll_cols", [P_, I_, I_, P_, P_], 145)
 SMALL_DOT = _kernel("small_dot", [P_, P_, I_, I_, I_, P_], 168)
 KERNELS = (SLICE_ROWS, LANE_LANE_DOT, SCALE_BY_SCALAR, TRANSPOSE, BLOCK_DIAG, STRIDED_ROWS,
            ROLL_COLS, SMALL_DOT)
+# The empty kernel; it stands for the TPU file's probe() harness (the cost of
+# running any kernel) and is no probe of a feature, so it is not in KERNELS.
+LAUNCH_FLOOR = Kernel("probes.cu", "probe_launch_floor", [I_, I_], name="probe_launch_floor",
+                      replaces="benchmarks/mosaic_probe.py:21")
+
+
+def launch_floor_plain(device, blocks: int = 1, threads: int = 32) -> None:
+    """Plain version of ``launch_floor``: nothing."""
+
+
+def launch_floor(device: torch.device | str, blocks: int = 1, threads: int = 32) -> None:
+    """Launch the empty kernel with ``blocks`` blocks of ``threads`` threads
+    on the CUDA ``device``; on the CPU there is nothing to launch."""
+    device = torch.device(device)
+    if not 1 <= threads <= 1024 or blocks < 1:
+        raise ValueError(f"needs blocks >= 1 and 1 <= threads <= 1024, got {blocks}, {threads}")
+    if device.type == "cpu":
+        return launch_floor_plain(device, blocks, threads)
+    if device.type != "cuda":
+        raise ValueError(f"kernels take CPU or CUDA tensors, got {device}")
+    LAUNCH_FLOOR(device, int(blocks), int(threads))
 
 
 def _2d(t: torch.Tensor, name: str, dtype=torch.float32):

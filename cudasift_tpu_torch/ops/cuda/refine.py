@@ -2,10 +2,13 @@
 
 Replaces the TPU kernel ``cudasift_tpu/ops/pallas/refine.py``
 (``refine_candidates_pallas``). The CUDA kernel (``csrc/refine.cu``) is
-bound by the latency of 27 scattered reads per candidate; one thread per
-slot reads its cube straight from the DoG stack, so none of the TPU's
-layout tiers exist here. Slots at or past the on-device ``count`` are
-skipped without a host read of the count. Its plain version is
+bound by one dependent chain a candidate and by the launch; one thread per
+slot, a warp a block so that an octave's slots reach every SM, reads the 19
+cube values it uses straight from the DoG stack in one round of loads, so
+none of the TPU's layout tiers exist here. It indexes the stack in 32 bits:
+a stack whose ``7 * H * W`` does not fit raises ``ValueError`` (the
+pipeline's largest, 1920 x 1080, is 14.5 M). Slots at or past the on-device
+``count`` are skipped without a host read of the count. Its plain version is
 ``detect.refine_candidates``, which CPU tensors take.
 """
 
@@ -28,6 +31,9 @@ KERNEL = Kernel(
 )
 
 
+INDEX_MAX = 2 ** 31 - 1     # the kernel's offsets into the stack are ints
+
+
 def refine_candidates(dog: torch.Tensor, flat_idx: torch.Tensor,
                       count: torch.Tensor, edge_limit: float,
                       lowest_scale: float) -> detect.Candidates:
@@ -42,6 +48,9 @@ def refine_candidates(dog: torch.Tensor, flat_idx: torch.Tensor,
     if dog.ndim != 3 or dog.shape[0] != 7:
         raise ValueError(f"expected a (7, H, W) DoG stack, got {tuple(dog.shape)}")
     _, h, w = dog.shape
+    if 7 * h * w > INDEX_MAX:
+        raise ValueError(f"a (7, {h}, {w}) DoG stack is past the kernel's 32-bit index "
+                         f"arithmetic ({7 * h * w} > {INDEX_MAX} entries)")
     k = flat_idx.shape[0]
     check(dog, "dog", torch.float32, (7, h, w), dog.device)
     check(flat_idx, "flat_idx", torch.int32, (k,), dog.device)

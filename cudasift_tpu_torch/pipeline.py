@@ -13,7 +13,7 @@ One structure on every device: per octave, smallest first,
      descriptor kernel (K3), on refine's validity mask directly (no
      compaction before it);
    - split (``use_fused=False``): refine's survivors front-packed, the
-     count-gated orientation-histogram kernel (K6) and ``histogram_peaks``,
+     count-gated orientation kernel (K6: histograms and their peaks),
      primaries and second-peak duplicates compacted into twice the
      capacity, then the count-gated descriptor kernel (K7);
 5. primaries then second-peak duplicates, scaled to image coordinates.
@@ -21,7 +21,12 @@ One structure on every device: per octave, smallest first,
 The octaves' slots are then merged by one stable compaction into
 ``max_pts``, with explicit ``overflow`` accounting. On CUDA tensors each
 kernel stage launches its hand-written kernel; on CPU tensors it runs the
-kernel's plain PyTorch version. No stage reads a count back to the host.
+kernel's plain PyTorch version. No stage reads a count back to the host, so
+on CUDA tensors a whole call is one program: ``extract_sift`` and
+``extract_sift_throughput`` replay one captured CUDA graph per (shape,
+params, device) (``utils.jit.cuda_graph_jit``, in the role of the JAX
+package's ``tpu_jit`` programs); inside ``utils.jit.disable_graphs()`` they
+dispatch every operation from the host instead.
 
 Point order matches the reference's octave recursion (cudaSiftH.cu:146-167):
 octaves smallest first, within an octave primary orientations before
@@ -41,8 +46,8 @@ from .ops.cuda.dog import dog_and_mask
 from .ops.cuda.orient_desc import MODES, orient_and_describe
 from .ops.cuda.refine import refine_candidates
 from .ops.detect import compact_mask, rank_select
-from .ops.orient import histogram_peaks
 from .sift_data import SiftData, resolve_device
+from .utils.jit import cuda_graph_jit
 
 
 def _check_params(params: SiftParams, device: torch.device) -> None:
@@ -126,9 +131,8 @@ def _split_orient_describe(base: torch.Tensor, cands, capacity: int):
         cands.valid, capacity)
     live = torch.arange(capacity, device=base.device) < live_count
     scale_safe = torch.where(live, f0["scale"], 1.0)
-    hist = cuda.orient.orientation_histograms(base, f0["xpos"], f0["ypos"], scale_safe,
-                                              live_count)
-    primary, secondary, has_second = histogram_peaks(hist)
+    _, primary, secondary, has_second = cuda.orient.orientation_peaks(
+        base, f0["xpos"], f0["ypos"], scale_safe, live_count)
     fields = {k: _dup(v) for k, v in f0.items()}
     fields["orientation"] = _dup(primary, secondary)
     valid = torch.cat([live, live & has_second])
@@ -201,6 +205,22 @@ def _extract(image: torch.Tensor, params: SiftParams) -> SiftData:
     )
 
 
+@cuda_graph_jit
+def _extract_sift_jit(image: torch.Tensor, params: SiftParams) -> SiftData:
+    return _extract(image, params)
+
+
+@cuda_graph_jit
+def _extract_batch_jit(images: torch.Tensor, params: SiftParams) -> SiftData:
+    # The frames one after another inside one program, as the JAX package
+    # unrolls them: each keeps its own count-gated stages.
+    outs = [_extract(images[i], params) for i in range(images.shape[0])]
+    return SiftData(**{
+        name: torch.stack([getattr(o, name) for o in outs])
+        for name in SiftData.__dataclass_fields__
+    })
+
+
 def _as_frames(images, device, ndim: int) -> torch.Tensor:
     """``images`` as a float32 tensor: a tensor stays on its device unless
     ``device`` is given; anything else goes to ``device``, the card when
@@ -222,22 +242,20 @@ def extract_sift(image, params: SiftParams = SiftParams(),
     typical). A tensor stays on its device unless ``device`` is given;
     array-likes go to ``device``, the CUDA card when None. Without a card
     that raises: ``device="cpu"`` runs on the CPU (the kernels' plain
-    versions).
+    versions). On the card a call replays one captured program per (shape,
+    params, device); the first call for such a key runs eagerly and captures.
     """
     img = _as_frames(image, device, 2)
     _check_params(params, img.device)
-    return _extract(img, params)
+    return _extract_sift_jit(img, params)
 
 
 def extract_sift_throughput(images, params: SiftParams = SiftParams(),
                             device: torch.device | str | None = None) -> SiftData:
-    """Extract SIFT from N same-shaped frames, one after another; fields
-    carry a leading (N,) batch axis (``num_pts`` has shape (N,)). Devices as
-    in ``extract_sift``."""
+    """Extract SIFT from N same-shaped frames in one program (on the card,
+    one captured graph per (N, shape, params, device) that runs the frames one
+    after another); fields carry a leading (N,) batch axis (``num_pts`` has
+    shape (N,)). Devices as in ``extract_sift``."""
     frames = _as_frames(images, device, 3)
     _check_params(params, frames.device)
-    outs = [_extract(frames[i], params) for i in range(frames.shape[0])]
-    return SiftData(**{
-        name: torch.stack([getattr(o, name) for o in outs])
-        for name in SiftData.__dataclass_fields__
-    })
+    return _extract_batch_jit(frames, params)

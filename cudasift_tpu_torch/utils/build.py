@@ -75,13 +75,18 @@ class Kernel:
     """One C launcher of a CUDA source, with its launch count.
 
     ``launches`` rises by one for every successful launch and nowhere else;
-    callers may reset it to 0. Calling the object with the CUDA device of
+    callers may reset it to 0. A launch made while a CUDA graph is being
+    captured runs nothing yet: ``utils.jit`` takes such launches off again
+    (``launch_counts``) and adds them at every replay (``add_launches``), so
+    the count goes on meaning launches on the device. Calling the object with the CUDA device of
     its tensors and the launcher's arguments builds the library on first
     use, launches under that device's guard on its current stream (the
     capture stream while a CUDA graph is being captured there) and raises if
     the launcher returns a non-zero ``cudaError_t``. ``name`` defaults to
     the source's stem; a source with several launchers names each.
     """
+
+    instances: list["Kernel"] = []       # every launcher of the process
 
     def __init__(self, source: str, symbol: str, argtypes: list,
                  flags: tuple[str, ...] = (), replaces: str = "", name: str = ""):
@@ -93,6 +98,7 @@ class Kernel:
         self.replaces = replaces
         self.launches = 0
         self._fn = None
+        Kernel.instances.append(self)
 
     @property
     def source_path(self) -> str:
@@ -114,6 +120,18 @@ class Kernel:
             raise RuntimeError(
                 f"{self.symbol} ({self.source}) failed: cudaError_t {err}")
         self.launches += 1
+
+
+def launch_counts() -> dict[Kernel, int]:
+    """Every launcher's count as it stands."""
+    return {k: k.launches for k in Kernel.instances}
+
+
+def add_launches(delta: dict[Kernel, int]) -> None:
+    """Add ``delta`` (launcher -> launches, negative to take off) to the
+    counts."""
+    for k, n in delta.items():
+        k.launches += n
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

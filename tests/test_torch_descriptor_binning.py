@@ -1,6 +1,7 @@
 """The descriptor-binning routine shared by the fused (K3) and split (K7)
-kernels (``csrc/sift_common.cuh``) and K3's warp-wide histogram and peak
-search (``csrc/orient_desc.cu``), restated in numpy at the kernels' widths
+kernels (``csrc/sift_common.cuh``), K3's warp-wide histogram
+(``csrc/orient_desc.cu``) and the peak search that K3 and K6 share (the same
+header), restated in numpy at the kernels' widths
 and orders and held against the plain versions (``ops/descriptor.py``,
 ``ops/orient.py``) and the JAX package's weights, so that the algorithm is
 checked here, where the kernels cannot run."""
@@ -180,9 +181,12 @@ def test_sources_share_the_one_routine():
     k7 = (CSRC / "descriptor.cu").read_text()
     for src in (k3, k7):
         assert "sift::bin_and_write<" in src and "sift::stage_sample(" in src
+    # K3's peak search is warp-wide, in the header it shares with K6.
     code = re.sub(r"//.*", "", k3)
-    assert "sm[32]" not in code and "peaks[32]" not in code     # no local-memory arrays
-    assert "warp_argmax(" in code and "__shfl_sync(" in code   # the peak search is warp-wide
+    common = re.sub(r"//.*", "", header)
+    assert "sm[32]" not in code + common and "peaks[32]" not in code + common   # no local arrays
+    assert "sift::find_peaks(" in code and "if (bi == lane) acc = acc + wi;" in code
+    assert "warp_argmax(" in common and "__shfl_sync(" in common
 
 
 # ---- K3's histogram and peak search -----------------------------------------
@@ -204,17 +208,15 @@ def warp_histogram(bins: np.ndarray, wgt: np.ndarray) -> np.ndarray:
 
 
 def warp_argmax(v: np.ndarray):
-    """The butterfly of ``warp_argmax``: (value, index) after five xor steps,
-    the lower index winning a tie; every lane must agree."""
-    v = v.copy()
-    i = np.arange(32)
-    lanes = np.arange(32)
-    for m in (16, 8, 4, 2, 1):
-        ov, oi = v[lanes ^ m], i[lanes ^ m]
-        take = (ov > v) | ((ov == v) & (oi < i))
-        v, i = np.where(take, ov, v), np.where(take, oi, i)
-    assert (v == v[0]).all() and (i == i[0]).all()
-    return v[0], int(i[0])
+    """``sift::warp_argmax``: (value, index) by two integer reductions over
+    the values' bit patterns, which order as the values do because none is
+    negative (-inf here stands for the sentinel -1 that leaves a lane out):
+    the maximum, then the lowest lane that holds it."""
+    assert ((v >= 0) | np.isneginf(v)).all()
+    bits = np.where(np.isneginf(v), np.int32(-1), v.astype(F32).view(np.int32))
+    m = bits.max()
+    i = int(np.flatnonzero(bits == m).min())
+    return (F32(-np.inf) if m == -1 else np.int32(m).view(F32)), i
 
 
 def warp_peaks(hist: np.ndarray):

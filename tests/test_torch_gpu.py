@@ -1,7 +1,7 @@
 """The CUDA kernels (K1-K8 with K3's three samplers, the patch-acquisition
 kernels P1 and the probes P2) against their plain versions on the card, the
-pipeline, fused and split, on the card against the CPU, and the demo CLI on
-the card. Marked ``gpu``: they skip without a CUDA device. On the card run
+pipeline, fused and split, on the card against the CPU, the entry points'
+captured programs against their eager runs, and the demo CLI on the card. Marked ``gpu``: they skip without a CUDA device. On the card run
 them with ``python -m pytest tests/test_torch_gpu.py -q --noconftest``: the
 conftest only configures jax, which these tests do not use."""
 
@@ -16,9 +16,12 @@ from cudasift_tpu_torch import cli
 from cudasift_tpu_torch.config import laplace_kernels
 from cudasift_tpu_torch.ops import convolve, detect
 from cudasift_tpu_torch.ops import match as match_plain
+from cudasift_tpu_torch.ops import orient as orient_plain
 from cudasift_tpu_torch.ops.cuda import (FUSED_PATH, acquire, compact, descriptor, dog, match,
                                          orient, orient_desc, probes, refine)
-from cudasift_tpu_torch.utils import io, synth
+from cudasift_tpu_torch import pipeline
+from cudasift_tpu_torch.ops.cuda import LIBRARY
+from cudasift_tpu_torch.utils import io, jit, synth
 from cudasift_tpu_torch.utils.synth import make_test_image
 
 pytestmark = pytest.mark.gpu
@@ -65,6 +68,40 @@ def test_refine_kernel_matches_plain(cuda):
     assert int(cnt) > 10 and torch.equal(got.valid, ref.valid)
     for name in ("xpos", "ypos", "scale", "sharpness", "edgeness"):
         torch.testing.assert_close(getattr(got, name), getattr(ref, name), rtol=3e-7, atol=0)
+
+
+def assert_candidates_equal(got, ref, what):
+    for name in ("xpos", "ypos", "scale", "sharpness", "edgeness", "valid"):
+        assert torch.equal(getattr(got, name), getattr(ref, name)), (what, name)
+
+
+# Octave shapes of a 1920x1080 frame, ragged and tiny ones, and capacities off
+# the block size; the count at 0, inside and at the capacity.
+@pytest.mark.parametrize("h,w,o,cap", [
+    (1080, 1920, 0, 5120), (540, 960, 1, 5120), (270, 480, 2, 2560), (135, 240, 3, 1280),
+    (67, 120, 4, 640), (67, 121, 1, 77), (135, 241, 2, 1), (9, 7, 0, 33), (3, 3, 0, 31),
+])
+def test_refine_kernel_equals_plain_at_octave_and_ragged_shapes(cuda, h, w, o, cap):
+    img = octave(cuda, h, w)
+    d, m = dog.dog_and_mask(img, laplace_kernels(5)[o], 1.0, 10.0)
+    idx, cnt = detect.compact_mask(m, cap)
+    # Every slot a real index, so that count = capacity reads no filler.
+    g = torch.Generator(device=cuda).manual_seed(66)
+    idx = torch.where(torch.arange(cap, device=cuda) < cnt, idx,
+                      torch.randint(0, 5 * h * w, (cap,), device=cuda, generator=g,
+                                    dtype=torch.int32))
+    for count in sorted({0, int(cnt), cap // 2, cap}):
+        c = torch.tensor(count, dtype=torch.int32, device=cuda)
+        before = refine.KERNEL.launches
+        got = refine.refine_candidates(d, idx, c, 10.0, 0.3)
+        assert refine.KERNEL.launches == before + 1
+        ref = detect.refine_candidates(d, idx, c, 10.0, 0.3)
+        assert_candidates_equal(got, ref, (h, w, count))
+        assert not got.valid[count:].any() and not got.xpos[count:].any()
+    if min(h, w) > 100:
+        assert int(got.valid.sum()) > 0
+    with pytest.raises(ValueError, match="32-bit"):
+        refine.refine_candidates(torch.empty((7, 20000, 16000), device="meta"), idx, c, 10.0, 0.0)
 
 
 @pytest.mark.parametrize("mode", ["shift", "exact", "fast"])
@@ -314,6 +351,64 @@ def test_orient_kernel_matches_plain(cuda):
     assert torch.equal(got, orient.orientation_histograms(img, x, y, s, count))
 
 
+def border_front_packed(cuda, h, w):
+    """Front-packed keypoints within 7 px of every border and corner, past
+    the image box on every side, and in the interior."""
+    edge_x = [-3.4, -0.6, 0.0, 0.4, 3.3, 5.99, 6.9, 7.0, w - 7.2, w - 3.5, w - 1.0, w - 0.3, w + 2.6]
+    edge_y = [-2.2, -0.6, 0.0, 0.4, 3.3, 5.99, 6.9, 7.0, h - 7.2, h - 3.5, h - 1.0, h - 0.3, h + 4.1]
+    pts = [(x, y) for x in edge_x for y in (2.5, h / 2 + 0.25, h - 2.5)]
+    pts += [(x, y) for y in edge_y for x in (2.5, w / 2 + 0.75, w - 2.5)]
+    pts += [(x, y) for x in (0.0, w - 1.0) for y in (0.0, h - 1.0)]
+    pts += [(w / 3, h / 3), (w / 2 + 0.5, h / 2 + 0.5), (2 * w / 3 + 0.1, 2 * h / 3 + 0.9)]
+    x = torch.tensor([p[0] for p in pts], dtype=torch.float32, device=cuda)
+    y = torch.tensor([p[1] for p in pts], dtype=torch.float32, device=cuda)
+    s = torch.tensor(np.random.default_rng(67).uniform(0.9, 2.6, len(pts)), dtype=torch.float32,
+                     device=cuda)
+    return octave(cuda, h, w), x, y, s
+
+
+@pytest.mark.parametrize("h,w", [(200, 300), (67, 121), (17, 9), (5, 40), (1080, 1920)])
+def test_orient_kernel_peaks_match_plain(cuda, h, w):
+    """K6 with its peak search inside, at ragged and tiny shapes, with the
+    count at 0, inside and at the capacity: histograms as the plain version
+    gives them (only the order of a bin's sum differs), the peaks those of
+    ``histogram_peaks`` on the kernel's own histograms, zeros past the count,
+    two runs bit-identical, and the histogram-only entry the same bits."""
+    img, x, y, s = border_front_packed(cuda, h, w)
+    n = x.shape[0]
+    for count in (0, 1, n // 2, n):
+        c = torch.tensor(count, dtype=torch.int32, device=cuda)
+        before = orient.KERNEL.launches
+        hist, p1, p2, h2 = orient.orientation_peaks(img, x, y, s, c)
+        assert orient.KERNEL.launches == before + 1
+        ref = orient.orientation_peaks_plain(img, x, y, s, c)
+        torch.testing.assert_close(hist, ref[0], rtol=1e-5, atol=1e-5)
+        q1, q2, g2 = orient_plain.histogram_peaks(hist)
+        torch.testing.assert_close(p1[:count], q1[:count], rtol=1e-6, atol=1e-5)
+        torch.testing.assert_close(p2[:count], q2[:count], rtol=1e-6, atol=1e-5)
+        assert torch.equal(h2[:count], g2[:count])
+        for t in (hist, p1, p2, h2):
+            assert not t[count:].any()
+        again = orient.orientation_peaks(img, x, y, s, c)
+        assert all(torch.equal(a, b) for a, b in zip((hist, p1, p2, h2), again))
+        assert torch.equal(hist, orient.orientation_histograms(img, x, y, s, c))
+    assert bool((hist.sum(dim=1) > 0).any()) and bool(h2.any()) and not bool(h2.all())
+
+
+def test_launch_floor_kernel(cuda):
+    from cudasift_tpu_torch.utils.timers import time_ms_graph
+
+    before = probes.LAUNCH_FLOOR.launches
+    probes.launch_floor(cuda)
+    probes.launch_floor(cuda, 160, 32)
+    torch.cuda.synchronize()
+    assert probes.LAUNCH_FLOOR.launches == before + 2
+    assert 0 < time_ms_graph(probes.launch_floor, cuda, 1280, 128, n=20) < 1.0
+    with pytest.raises(RuntimeError):
+        probes.LAUNCH_FLOOR(cuda, 1, 2048)            # the launcher refuses; nothing is counted
+    assert probes.LAUNCH_FLOOR.launches == before + 2 + 23
+
+
 def test_descriptor_kernel_matches_plain(cuda):
     img, x, y, s, o, count = front_packed(cuda)
     got = descriptor.extract_descriptors(img, x, y, s, o, count)
@@ -432,3 +527,154 @@ def test_cli_on_card(cuda, tmp_path, capsys):
     assert metrics["num_pts1"] > 100 and metrics["overflow1"] == 0 and metrics["num_fit"] > 50
     assert metrics["extract_ms"] > 0 and metrics["match_ms"] > 0
     assert io.read_pgm(out).shape == (h, w)
+
+
+# ---- The entry points as captured programs (utils.jit) ----------------------
+
+def assert_sift_equal(a, b, what=""):
+    for name in ct.SiftData.__dataclass_fields__:
+        assert torch.equal(getattr(a, name), getattr(b, name)), (what, name)
+
+
+FLOWS = {
+    "shift": dict(),
+    "fast": dict(fast_gradients=True),
+    "exact": dict(grad_mode="exact"),
+    "split": dict(use_fused=False),
+    "split_k8": dict(use_fused=False, use_pallas_compact=True),
+    "scale_up": dict(scale_up=True),
+}
+
+
+@pytest.mark.parametrize("flow", list(FLOWS))
+def test_graph_equals_eager(cuda, flow):
+    """The first call (eager, then captured), a replay and a replay on a
+    second image of the same shape each equal the eager run of that image
+    field by field, and count the same launches."""
+    pipeline._extract_sift_jit.clear_cache()
+    params = ct.SiftParams(num_octaves=3, thresh=2.0, max_pts=2048, **FLOWS[flow])
+    imgs = [torch.as_tensor(make_test_image(192, 256, seed=s), device=cuda) for s in (70, 71)]
+    with jit.disable_graphs():
+        eager = [ct.extract_sift(i, params) for i in imgs]
+        for k in LIBRARY:
+            k.launches = 0
+        ct.extract_sift(imgs[0], params)
+        eager_launches = {k.name: k.launches for k in LIBRARY}
+    assert not pipeline._extract_sift_jit.programs
+    assert int(eager[0].num_pts) > 30 and not torch.equal(eager[0].xpos, eager[1].xpos)
+    for call, which in (("first", 0), ("replay", 0), ("second image", 1), ("back", 0)):
+        for k in LIBRARY:
+            k.launches = 0
+        got = ct.extract_sift(imgs[which], params)
+        torch.cuda.synchronize()
+        assert_sift_equal(got, eager[which], (flow, call))
+        assert {k.name: k.launches for k in LIBRARY} == eager_launches, (flow, call)
+    assert len(pipeline._extract_sift_jit.programs) == 1
+    assert sum(eager_launches.values()) >= 9
+
+
+def test_graph_programs_per_shape_and_held_results(cuda):
+    pipeline._extract_sift_jit.clear_cache()
+    params = ct.SiftParams(num_octaves=3, thresh=2.0, max_pts=2048)
+    a = torch.as_tensor(make_test_image(192, 256, seed=72), device=cuda)
+    b = torch.as_tensor(make_test_image(160, 224, seed=73), device=cuda)
+    c = torch.as_tensor(make_test_image(192, 256, seed=74), device=cuda)
+    with jit.disable_graphs():
+        ea, eb, ec = (ct.extract_sift(i, params) for i in (a, b, c))
+    for _ in range(2):
+        ra = ct.extract_sift(a, params)
+        rb = ct.extract_sift(b, params)
+    assert len(pipeline._extract_sift_jit.programs) == 2       # two shapes, two programs
+    held = ct.extract_sift(a, params)                           # a replay's result
+    rc = ct.extract_sift(c, params)                             # the same program again
+    torch.cuda.synchronize()
+    assert_sift_equal(held, ea, "held")
+    assert_sift_equal(ra, ea, "a")
+    assert_sift_equal(rb, eb, "b")
+    assert_sift_equal(rc, ec, "c")
+    assert held.data.data_ptr() != rc.data.data_ptr()
+    # Other params: another program.
+    other = ct.SiftParams(num_octaves=3, thresh=2.5, max_pts=2048)
+    ct.extract_sift(a, other)
+    assert len(pipeline._extract_sift_jit.programs) == 3
+    pipeline._extract_sift_jit.clear_cache()
+    assert not pipeline._extract_sift_jit.programs
+
+
+def test_graph_calls_from_two_streams_are_ordered(cuda):
+    """One program called back to back from two streams with nothing between
+    them but the program's own event: each call gives its own image's result."""
+    pipeline._extract_sift_jit.clear_cache()
+    params = ct.SiftParams(num_octaves=3, thresh=2.0, max_pts=2048)
+    imgs = [torch.as_tensor(make_test_image(192, 256, seed=s), device=cuda) for s in (72, 74)]
+    with jit.disable_graphs():
+        eager = [ct.extract_sift(i, params) for i in imgs]
+    ct.extract_sift(imgs[0], params)                            # eager, then captured
+    torch.cuda.synchronize()                                    # the images exist for every stream
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    got = []
+    for turn in range(6):
+        with torch.cuda.stream(streams[turn % 2]):
+            got.append(ct.extract_sift(imgs[turn % 2], params))
+    torch.cuda.synchronize()
+    for turn, d in enumerate(got):
+        assert_sift_equal(d, eager[turn % 2], ("stream", turn))
+    assert len(pipeline._extract_sift_jit.programs) == 1
+    pipeline._extract_sift_jit.clear_cache()
+
+
+def test_graph_oldest_program_goes(cuda, monkeypatch):
+    monkeypatch.setattr(jit, "MAX_PROGRAMS", 2)
+    params = ct.SiftParams(num_octaves=3, thresh=2.0, max_pts=2048)
+    a = torch.as_tensor(make_test_image(192, 256, seed=72), device=cuda)
+    b = torch.as_tensor(make_test_image(160, 224, seed=73), device=cuda)
+    small = jit.cuda_graph_jit(pipeline._extract)
+    for img in (a, b, a, a[:100].contiguous()):
+        last = small(img, params)
+    assert len(small.programs) == 2
+    assert (tuple(b.shape), torch.float32) not in [k[1] for k in small.programs]
+    small.clear_cache()
+    torch.cuda.synchronize()
+    with jit.disable_graphs():
+        assert_sift_equal(last, small(a[:100].contiguous(), params), "held past the drop")
+
+
+def test_throughput_program_equals_single_calls(cuda):
+    pipeline._extract_batch_jit.clear_cache()
+    params = ct.SiftParams(num_octaves=3, thresh=2.0, max_pts=2048)
+    frames = torch.stack([torch.as_tensor(make_test_image(192, 256, seed=s), device=cuda)
+                          for s in (75, 76, 77, 78)])
+    with jit.disable_graphs():
+        singles = [ct.extract_sift(f, params) for f in frames]
+    for k in LIBRARY:
+        k.launches = 0
+    first = ct.extract_sift_throughput(frames, params)
+    per_call = {k.name: k.launches for k in LIBRARY}
+    again = ct.extract_sift_throughput(frames, params)
+    flipped = ct.extract_sift_throughput(frames.flip(0), params)
+    torch.cuda.synchronize()
+    assert per_call["dog"] == per_call["refine"] == per_call["orient_desc"] == 12
+    assert {k.name: k.launches for k in LIBRARY} == {n: 3 * c for n, c in per_call.items()}
+    assert len(pipeline._extract_batch_jit.programs) == 1
+    assert first.num_pts.shape == (4,) and first.data.shape == (4, 2048, 128)
+    for i, single in enumerate(singles):
+        for name in ct.SiftData.__dataclass_fields__:
+            assert torch.equal(getattr(first, name)[i], getattr(single, name)), (i, name)
+            assert torch.equal(getattr(again, name)[i], getattr(single, name)), (i, name)
+            assert torch.equal(getattr(flipped, name)[3 - i], getattr(single, name)), (i, name)
+
+
+def test_graph_capture_failure_raises(cuda):
+    """A body that waits for the host cannot be captured: the call raises
+    and keeps no program."""
+    @jit.cuda_graph_jit
+    def bad(x):
+        return x + float(x.sum())            # a host read inside the body
+
+    x = torch.ones(8, device=cuda)
+    with pytest.raises(RuntimeError):
+        bad(x)
+    torch.cuda.synchronize()
+    assert not bad.programs
+    with jit.disable_graphs():
+        assert float(bad(x)[0]) == 9.0
