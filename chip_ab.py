@@ -43,6 +43,13 @@ tree's histogram-only launch, alone and followed by the plain peak search
 and its histogram-only launch (``orient_leaves``), every histogram within
 rtol 1e-5 of the plain version. Both are timed graph-replayed and back to
 back, in the same order of turns.
+
+K4 (``match.cu``): the other tree's entry ``match_descriptors`` is bound
+with the arguments it had before its optional ``second`` output (13 and the
+stream); its score, ambiguity and index must equal this tree's call without
+that output bit for bit, in both tiers, at 4096 x 4096 (n2 4001) and on the
+fused dead-leaves pair's 32768-slot sets (``match_bits_equal``), and both
+are timed graph-replayed in the same order of turns (``match``).
 Prints the card's name and power limit, then one JSON line.
 """
 
@@ -75,10 +82,13 @@ def main(argv: list[str]) -> int:
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
 
+    import numpy as np
+
     import cudasift_tpu_torch as ct
     from cudasift_tpu_torch.ops import convolve, detect
     from cudasift_tpu_torch.ops import orient as orient_plain
-    from cudasift_tpu_torch.ops.cuda import compact, descriptor, dog, orient, orient_desc, refine
+    from cudasift_tpu_torch.ops.cuda import (compact, descriptor, dog, match, orient, orient_desc,
+                                             refine)
     from cudasift_tpu_torch.pipeline import _compact
     from cudasift_tpu_torch.utils import synth
     from cudasift_tpu_torch.utils.build import Kernel, ptr
@@ -165,6 +175,23 @@ def main(argv: list[str]) -> int:
         other_k7(img.device, ptr(img), h, w, ptr(xpos), ptr(ypos), ptr(scale),
                  ptr(orientation), ptr(count), n, ptr(desc))
         return desc
+
+    # K4 before its second output: the entry without the last pointer.
+    other_k4 = Kernel(str(other_csrc / "match.cu"), match.KERNEL.symbol,
+                      match.KERNEL.argtypes[:-1], flags=match.KERNEL.flags, name="other_match")
+
+    def other_match(d1, d2, n1, n2, use_bf16=False):
+        dev_ = d1.device
+        n1cap, n2cap = d1.shape[0], d2.shape[0]
+        splits = -(-n2cap // match.MATCH_SPLIT)
+        part_s = torch.empty((n1cap, splits, 2), dtype=torch.float32, device=dev_)
+        part_i = torch.empty((n1cap, splits), dtype=torch.int32, device=dev_)
+        outs = (torch.empty((n1cap,), dtype=torch.float32, device=dev_),
+                torch.empty((n1cap,), dtype=torch.float32, device=dev_),
+                torch.empty((n1cap,), dtype=torch.int32, device=dev_))
+        other_k4(dev_, ptr(d1), ptr(d2), n1cap, n2cap, ptr(n1), ptr(n2), int(use_bf16), splits,
+                 ptr(part_s), ptr(part_i), *(ptr(o) for o in outs))
+        return outs
 
     dev = torch.device("cuda", 0)
     params = ct.SiftParams(num_octaves=5, init_blur=1.0, thresh=3.0, max_pts=32768)
@@ -366,6 +393,35 @@ def main(argv: list[str]) -> int:
             seen[side] += 1
     out["orient_desc_shift_flow"] = flow
     print(f"orient_desc_shift_flow: {json.dumps(flow)}", flush=True)
+
+    # K4 of both trees on the same sets: outputs equal bit for bit, then
+    # graph-replayed in turns.
+    rng = np.random.default_rng(SEED)
+    m1, m2 = (rng.standard_normal((4096, 128)).astype(np.float32) for _ in range(2))
+    m1 /= np.linalg.norm(m1, axis=1, keepdims=True)
+    m2 /= np.linalg.norm(m2, axis=1, keepdims=True)
+    count = lambda n: torch.tensor(n, dtype=torch.int32, device=dev)  # noqa: E731
+    leaves_a = synth.make_leaves_image(H, W, SEED)
+    la = ct.extract_sift(leaves_a, params)
+    lb = ct.extract_sift(synth.warp_image(leaves_a, synth.known_homography(H, W)), params)
+    match_sets = {"4096x4096": (torch.as_tensor(m1, device=dev), torch.as_tensor(m2, device=dev),
+                                count(4096), count(4001)),
+                  "leaves": (la.data, lb.data, la.num_pts, lb.num_pts)}
+    bits, row = {}, {}
+    for what, mset in match_sets.items():
+        for use_bf16 in (False, True):
+            got = match.match_descriptors(*mset, use_bf16)
+            ref = other_match(*mset, use_bf16)
+            bits[f"{what}{', bf16' if use_bf16 else ''}"] = all(
+                torch.equal(a, b) for a, b in zip(got, ref))
+        for side, fn in (("other", other_match), ("this", match.match_descriptors),
+                         ("this", match.match_descriptors), ("other", other_match)):
+            row.setdefault(f"{what}_{side}_graph_ms", []).append(timers["graph_ms"](fn, mset))
+    if not all(bits.values()):
+        raise RuntimeError(f"chip_ab: K4 outputs differ between the trees: {bits}")
+    out["match_bits_equal"] = bits
+    out["match"] = row
+    print(f"match: bits equal {json.dumps(bits)}; {json.dumps(row)}", flush=True)
 
     flat = mask.reshape(-1)
     nonzero_static = lambda f: torch.nonzero_static(f, size=cap, fill_value=0)  # noqa: E731

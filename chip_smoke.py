@@ -22,7 +22,8 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    card's launch floor: an empty kernel graph-replayed at one block and at
    K2's and K6's grids (``floor_ms`` on every row);
    the patch-acquisition kernels (P1) on the benchmark's own inputs; the
-   eight capability probes (P2).
+   eight capability probes (P2). K4 also with its second-best output
+   (``match_top2``), against plain and against the call without it.
 4. Main path, fused: the reference demo flow on two synthetic 1920x1080
    frames (frame B is frame A warped by a known homography) -- extract,
    match, RANSAC, refinement -- with the launch counters set to 0 just
@@ -31,7 +32,13 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    CUDA graph per (shape, params): every flow's two ``SiftData`` must equal
    the eager run's (``utils.jit.disable_graphs``) field by field and count
    the same launches, and extraction is timed both ways, by CUDA events and
-   by the host's clock.
+   by the host's clock. ``match_sift_data``, ``find_homography`` and
+   ``improve_homography`` replay their programs too (captured first, each
+   program's memory measured around its capture): in every flow their
+   outputs, replayed and as the flow got them, must equal the eager run's
+   bit for bit with the same generator seed and launches; on the blocks and
+   the leaves flow each is timed both ways (events, host clock) with its
+   kernels and the device's busy share (``torch.profiler``).
 4b. Main path, split: the flow with ``use_fused=False,
    use_pallas_compact=True`` (compaction, orientation-histogram and
    descriptor kernels in place of the fused one) on the blocks pair, its
@@ -51,6 +58,12 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    K3, merge; the rest of the whole frame's replay is glue), the kernels a
    frame launches (``torch.profiler``), and ``extract_sift_throughput`` on
    four 1920x1080 frames in one program against four single calls.
+4d. ``cudasift_tpu_torch.parallel``: those four frames through
+   ``extract_sift_throughput_sharded`` and ``extract_sift_batched`` on a
+   mesh that names the card four times, and on every card there is, each
+   equal to the four single calls; the sharded matcher on the fused leaves
+   flow's sets and on 4096 x 16384 unit sets, equal to single-device K4;
+   then ``parallel.dryrun.dryrun_multichip(4)``.
 4c. The demo CLI (``cudasift_tpu_torch.cli``) on the card, in-process, on
    the dead-leaves pair written as PGM files; then the patch-acquisition
    benchmark and the probe runner, each with the counters at 0.
@@ -115,6 +128,11 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def stamp(phase: str) -> None:
+    """Log the wall time since the start as a phase begins."""
+    log(f"[{time.perf_counter() - T_START:.1f} s] {phase}")
+
+
 def bf16_flip_case(np):
     """The JAX package's adversarial near-tie (tests/test_pallas.py): a
     query and 64 rows where the bfloat16x3 sweep ranks row 20 above row 40
@@ -164,13 +182,14 @@ def main() -> int:
     import numpy as np
 
     import cudasift_tpu_torch as ct
-    from cudasift_tpu_torch import cli
+    from cudasift_tpu_torch import cli, parallel
     from cudasift_tpu_torch.ops import convolve, detect
     from cudasift_tpu_torch.ops import match as match_plain
     from cudasift_tpu_torch.ops import orient as orient_plain
     from cudasift_tpu_torch.ops.cuda import (FUSED_PATH, KERNELS, LIBRARY, SPLIT_PATH, acquire,
                                              compact, descriptor, dog, match, orient,
                                              orient_desc, probes, refine)
+    from cudasift_tpu_torch.parallel.dryrun import dryrun_multichip
     from cudasift_tpu_torch.pipeline import _compact, _extract_octave
     from cudasift_tpu_torch.utils import jit, native, synth
     from cudasift_tpu_torch.utils.build import build
@@ -182,6 +201,7 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
     # ---- 2. Build --------------------------------------------------------
+    stamp("build")
     t0 = time.perf_counter()
     sources = sorted({(k.source, k.flags) for k in KERNELS})
     with ThreadPoolExecutor(len(sources) + 1) as pool:
@@ -193,6 +213,7 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.1f} s -> {[p.name for p in libs]} + host codec")
 
     # ---- 3. Each kernel against its plain version ------------------------
+    stamp("kernels")
     # The launch floor first: an empty kernel, graph-replayed 100 times, at
     # one block and at the grids of the two launch-bound kernels of the flows
     # (K2: a warp a block; K6: four slots a block of 128 threads; 5120 slots
@@ -376,6 +397,20 @@ def main() -> int:
     require(torch.allclose(ks, ps, rtol=1e-5, atol=1e-6), "K4 scores differ")
     k4_err = float((ks - ps).abs().max())
     log(f"K4: 4096 x 4096 (n2 4001), indices equal, score max abs err {k4_err:.3g}")
+    # K4 with its second-best output (``match_top2``, the triple the sharded
+    # matcher merges). Tolerance: second against the plain triple at rtol
+    # 1e-5 / atol 1e-6; none between the two calls: the call without it (a
+    # null pointer) gives the score and index of the call with it bit for
+    # bit, and its ambiguity is second / (score + 1e-6) to the bit.
+    tb, tsec, ti = match.match_top2(d1, d2, 4096, n2)
+    psec = match_plain.match_top2(d1, d2, 4096, n2)[1]
+    require(torch.equal(tb, ks) and torch.equal(ti, ki) and torch.equal(ka, tsec / (tb + 1e-6)),
+            "K4 with its second output differs from the call without it")
+    require(torch.allclose(tsec, psec, rtol=1e-5, atol=1e-6),
+            f"K4 second differs from plain: max abs {float((tsec - psec).abs().max())}")
+    log(f"K4 with its second output: score and index equal to the call without it, ambiguity "
+        f"its second / (score + 1e-6) bit for bit, second max abs err against plain "
+        f"{float((tsec - psec).abs().max()):.3g}")
     # Bound: both sets in, three (N1,) outputs; three TF32 products of
     # 4096 x 4001 x 128 multiply-adds on the tensor cores (bound_f32_ms:
     # one float32 product on the CUDA cores, the bound of the kernel before
@@ -395,7 +430,8 @@ def main() -> int:
         bound=bound(match_bytes, 3 * match_ops, "tf32"),
         bound_f32_ms=bound(match_bytes, match_ops)[0],
         library_ms=time_ms(top2, d1, d2, 4001),
-        library_loop_ms=time_ms_loop(top2, d1, d2, 4001, n=100))
+        library_loop_ms=time_ms_loop(top2, d1, d2, 4001, n=100),
+        second_max_abs_err=float((tsec - psec).abs().max()))
     # The bfloat16 tier (use_bf16) against its plain version: scores at
     # rtol 1e-5 / atol 1e-6; indices equal but at near-ties of the rounded
     # inputs (float64 scores of the two picks within 1e-6).
@@ -697,31 +733,89 @@ def main() -> int:
         f"{int(on_cpu.num_pts)} on the CPU, overlap {overlap:.4f}")
 
     # ---- 4. Main path ----------------------------------------------------
+    stamp("main path")
     gen = torch.Generator(device=dev)
+    hom_kw = dict(num_loops=10240, min_score=0.0, max_ambiguity=0.80, thresh=5.0)
+    irls_args = (5, 0.0, 0.80, 3.0)
+
+    def match_and_fit(da, db):
+        gen.manual_seed(SEED)
+        m = ct.match_sift_data(da, db)
+        h1, nm = ct.find_homography(m, gen, **hom_kw)
+        h2, nfit, err = ct.improve_homography(m, h1, *irls_args)
+        return m, h1, nm, h2, nfit, err
 
     def demo_flow(fparams, fa, fb):
-        gen.manual_seed(SEED)
         da = ct.extract_sift(fa, fparams)
         db = ct.extract_sift(fb, fparams)
-        m = ct.match_sift_data(da, db)
-        h1, nm = ct.find_homography(m, gen, num_loops=10240, min_score=0.0,
-                                    max_ambiguity=0.80, thresh=5.0)
-        h2, nfit, _ = ct.improve_homography(m, h1, 5, 0.0, 0.80, 3.0)
-        return da, db, m, h1, nm, h2, nfit
+        return (da, db) + match_and_fit(da, db)
 
-    timings = {}
+    # Kernels a call puts on the device and their summed device time, from
+    # torch.profiler (memory copies and sets left out).
+    def device_kernels(fn):
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA and "memcpy" not in e.name.lower()
+               and "memset" not in e.name.lower()]
+        return dict(kernels=len(evs),
+                    device_ms=sum(e.time_range.elapsed_us() for e in evs) / 1e3)
 
-    def run_flow(label, fparams, pair, path, absent=(), gate_homography=True):
+    # The memory each program holds: its private pool (the segments of
+    # torch.cuda.memory_snapshot outside the default pool that its capturing
+    # call adds) and its static copies of the inputs. Extraction at the main
+    # path's shape, then RANSAC and IRLS on its two frames' matches
+    # (matching runs eagerly).
+    from cudasift_tpu_torch.ops import homography as homography_ops
+    from cudasift_tpu_torch.pipeline import _extract_sift_jit
+
+    def pool_bytes():
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg["segment_pool_id"]) != (0, 0))
+
+    def captured(fn, program_fn):
+        torch.cuda.synchronize()
+        before = pool_bytes()
+        out = fn()
+        torch.cuda.synchronize()
+        newest = next(reversed(program_fn.programs.values()))
+        static = sum(t.numel() * t.element_size() for t in jit.tensors(newest.static))
+        return out, dict(pool_mb=(pool_bytes() - before) / 2**20, static_mb=static / 2**20)
+
+    pools = {}
+    da0, pools["extract_sift"] = captured(lambda: ct.extract_sift(img_a, params),
+                                          _extract_sift_jit)
+    db0 = ct.extract_sift(img_b, params)
+    m0 = ct.match_sift_data(da0, db0)
+    (h0, _), pools["find_homography"] = captured(
+        lambda: ct.find_homography(m0, gen, **hom_kw), homography_ops._find_homography_jit)
+    _, pools["improve_homography"] = captured(
+        lambda: ct.improve_homography(m0, h0, *irls_args),
+        homography_ops._improve_homography_jit)
+    require(all(p["pool_mb"] > 0 for p in pools.values()), f"a program has no pool: {pools}")
+    log(f"programs' memory (MB: private pool, static input copies): {json.dumps(pools)}")
+    del da0, db0, m0, h0
+
+    timings = {"programs_memory_mb": pools}
+
+    def run_flow(label, fparams, pair, path, absent=(), gate_homography=True, time_fit=False):
         """Drive the demo flow once on a frame ``pair`` with every launch
         counter at 0, require each kernel of ``path`` launched and none of
         ``absent``, gate the results (the corner error only with
         ``gate_homography``), hold the two extractions (replayed from their
-        captured program) against the eager run, and time extraction both
-        ways and matching."""
+        captured program) against the eager run and RANSAC and IRLS
+        (replayed, behind the eager matching) against theirs, and time
+        extraction both ways and matching; with ``time_fit`` also matching
+        (eager) and RANSAC and IRLS both ways with their kernels and the
+        device's busy share."""
         torch.cuda.synchronize()
         for k in KERNELS:
             k.launches = 0
-        da, db, m, h1, nm, h2, nfit = demo_flow(fparams, *pair)
+        da, db, m, h1, nm, h2, nfit, err = demo_flow(fparams, *pair)
         torch.cuda.synchronize()
         launches = {k.name: k.launches for k in KERNELS}
         log(f"{label} launches: { {k.name: k.launches for k in LIBRARY} }")
@@ -758,6 +852,81 @@ def main() -> int:
         require(flow_counts == eager_counts,
                 f"{label}: launches differ, replayed {flow_counts}, eager {eager_counts}")
 
+        # Matching, RANSAC and IRLS replayed from their programs (captured
+        # before the first flow; every flow's sets have the same shapes) and
+        # dispatched from the host, the generator seeded alike: the flow's,
+        # the replayed and the eager outputs equal bit for bit, the same
+        # launches counted.
+        def fit_counted():
+            for k in KERNELS:
+                k.launches = 0
+            out = match_and_fit(da, db)
+            torch.cuda.synchronize()
+            return out, {k.name: k.launches for k in LIBRARY}
+
+        replayed, fit_counts = fit_counted()
+        with jit.disable_graphs():
+            eager_fit, eager_fit_counts = fit_counted()
+        for what, got in (("flow", (m, h1, nm, h2, nfit, err)), ("replayed", replayed)):
+            for f in ct.SiftData.__dataclass_fields__:
+                require(torch.equal(getattr(got[0], f), getattr(eager_fit[0], f)),
+                        f"{label}: matched {f} differs between the {what} and the eager run")
+            for name, a, b in zip(("homography", "num_matches", "refined homography", "numFit",
+                                   "match_error"), got[1:], eager_fit[1:]):
+                require(torch.equal(a, b),
+                        f"{label}: {name} differs between the {what} and the eager run")
+        require(fit_counts == eager_fit_counts and fit_counts[match.KERNEL.name] == 1,
+                f"{label}: match launches differ, replayed {fit_counts}, eager {eager_fit_counts}")
+        if time_fit:
+            # Each call timed dispatched from the host and replayed, by CUDA
+            # events and by the host's clock; kernels and device time from
+            # torch.profiler, the busy share over the host-clock time.
+            # The programs are captured anew first: torch.profiler sees the
+            # kernels of a graph in the first session that traces it only
+            # (a second session over the same graph recorded none).
+            programs = {"find_homography": homography_ops._find_homography_jit,
+                        "improve_homography": homography_ops._improve_homography_jit}
+            for program_fn in programs.values():
+                program_fn.clear_cache()
+            fit_t = {}
+            calls = (("match_sift_data", lambda: ct.match_sift_data(da, db)),
+                     ("find_homography", lambda: ct.find_homography(m, gen, **hom_kw)),
+                     ("improve_homography", lambda: ct.improve_homography(m, h1, *irls_args)))
+            for name, fn in calls:
+                with jit.disable_graphs():
+                    e = dict(ms=time_ms(fn, iters=3, warmup=1),
+                             wall_ms=time_fn(fn, iters=3, warmup=0), **device_kernels(fn))
+                if name not in programs:        # matching runs eagerly either way
+                    e["busy"] = e["device_ms"] / e["wall_ms"]
+                    fit_t[name] = dict(eager=e, replayed=e)
+                    continue
+                r = dict(ms=time_ms(fn, iters=10, warmup=1),
+                         wall_ms=time_fn(fn, iters=10, warmup=0), **device_kernels(fn))
+                # A replay puts the eager run's kernels on the device. One
+                # trace of 2865 kernels once read 2864 replayed: traces that
+                # differ are both taken again, the replay on a fresh capture
+                # of the same program, at most twice; every (eager, replayed)
+                # reading is kept.
+                reads = [(e["kernels"], r["kernels"])]
+                while reads[-1][0] != reads[-1][1] and len(reads) < 3:
+                    programs[name].clear_cache()
+                    with jit.disable_graphs():
+                        eager_kernels = device_kernels(fn)["kernels"]
+                    reads.append((eager_kernels, device_kernels(fn)["kernels"]))
+                r["kernel_reads"] = reads
+                require(reads[-1][0] == reads[-1][1] > 0,
+                        f"{label}: {name}: kernels (eager, replayed) read {reads}")
+                for t in (e, r):
+                    t["busy"] = t["device_ms"] / t["wall_ms"]
+                fit_t[name] = dict(eager=e, replayed=r)
+            log(f"{label}: match (eager both ways), RANSAC, IRLS eager / replayed (ms, events | "
+                f"host clock; kernels; busy): " + "; ".join(
+                    f"{n} {t['eager']['ms']:.3f} | {t['eager']['wall_ms']:.3f} / "
+                    f"{t['replayed']['ms']:.3f} | {t['replayed']['wall_ms']:.3f}; "
+                    f"{t['eager']['kernels']} / {t['replayed']['kernels']}; "
+                    f"{t['eager']['busy']:.3f} / {t['replayed']['busy']:.3f}"
+                    for n, t in fit_t.items()))
+
         # Extraction timed as dispatched from the host and as replayed, each by
         # CUDA events around the call and by the host's clock around call and
         # wait.
@@ -770,20 +939,23 @@ def main() -> int:
         match_ms = time_ms(ct.match_sift_data, da, db, iters=5, warmup=1)
         timings[label] = dict(eager_ms=eager_ms, eager_wall_ms=eager_wall,
                               graph_ms=extract_ms, graph_wall_ms=extract_wall)
+        if time_fit:
+            timings[label]["fit"] = fit_t
         log(f"{label}: num_pts A {n_a} B {int(db.num_pts)}, overflow A "
             f"{int(da.overflow)} B {int(db.overflow)}, matches (ambiguity < 0.8) "
             f"{matched}, RANSAC inliers {int(nm)}, numFit {int(nfit)}, corner error "
             f"RANSAC {err1:.4f} px refined {err2:.4f} px; graph equal to eager on both "
-            f"frames, launches equal")
+            f"frames and for RANSAC and IRLS (matching eager), launches equal")
         log(f"{label}: extraction per 1920x1080 frame eager {eager_ms:.3f} ms (events) "
             f"{eager_wall:.3f} ms (host clock), replayed {extract_ms:.3f} ms (events) "
             f"{extract_wall:.3f} ms (host clock); "
             f"match {match_ms:.3f} ms ({n_a} x {int(db.num_pts)} of 32768 slots)")
         return da, db, launches
 
-    _, _, launches = run_flow("main path", params, (img_a, img_b), FUSED_PATH)
+    _, _, launches = run_flow("main path", params, (img_a, img_b), FUSED_PATH, time_fit=True)
 
     # ---- 4b. Main path, split --------------------------------------------
+    stamp("split and leaves flows")
     # The split flow on the blocks pair, for the record: its exact
     # descriptors pass fewer matches through the 0.8 ratio gate than
     # find_homography's minimum of 8, so its corner error is not gated here.
@@ -793,7 +965,8 @@ def main() -> int:
     run_flow("split path, blocks", split, (img_a, img_b), SPLIT_PATH,
              absent=(orient_desc.KERNEL,), gate_homography=False)
     leaves = (leaf_a, leaf_b)
-    la, lb, leaves_launches = run_flow("fused path, leaves", params, leaves, FUSED_PATH)
+    la, lb, leaves_launches = run_flow("fused path, leaves", params, leaves, FUSED_PATH,
+                                       time_fit=True)
     # The fused path with K3's fast sampler, gated as the shift flow above.
     _, _, fast_launches = run_flow("fast path, leaves",
                                    dataclasses.replace(params, fast_gradients=True),
@@ -804,6 +977,7 @@ def main() -> int:
         if k not in FUSED_PATH:
             launches[k.name] = split_launches[k.name]
 
+    stamp("matchers, layers and throughput on the leaves flow")
     # K4 and K5 at the main path's shape: the fused leaves flow's own sets,
     # 32768 slots each. K4 against plain: scores at rtol 1e-5 / atol 1e-6,
     # indices equal but at near-ties (float64 scores of the two picks within
@@ -919,21 +1093,8 @@ def main() -> int:
         f"whole frame replayed {whole:.4f} ms")
 
     # Kernels a frame puts on the device and their summed device time, eager
-    # and replayed, from torch.profiler: the replay must put the eager run's
-    # kernels on the device, no more and no fewer.
-    def device_kernels(fn):
-        from torch.profiler import ProfilerActivity, profile
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        evs = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA and "memcpy" not in e.name.lower()
-               and "memset" not in e.name.lower()]
-        return dict(kernels=len(evs),
-                    device_ms=sum(e.time_range.elapsed_us() for e in evs) / 1e3)
-
+    # and replayed: the replay must put the eager run's kernels on the
+    # device, no more and no fewer.
     for label, fparams in (("fused", params), ("split", split)):
         with jit.disable_graphs():
             eager_k = device_kernels(lambda: ct.extract_sift(leaf_a, fparams))
@@ -973,6 +1134,91 @@ def main() -> int:
         f"single calls {single_wall:.3f} ms = {4e3 / single_wall:.1f} frames/s, dispatched from "
         f"the host {eager4_wall:.3f} ms = {4e3 / eager4_wall:.1f} frames/s (host clock, points "
         f"{batch.num_pts.tolist()})")
+
+    # ---- 4d. The parallel module at full width -------------------------
+    stamp("parallel")
+    # The same four frames on a mesh that names the card four times (each
+    # shard one frame, run in turn) and on every card there is: both
+    # entries equal to the four single calls field by field, with the
+    # counters at 0 just before and read just after.
+    mesh4 = parallel.Mesh((dev,) * 4)
+    torch.cuda.synchronize()
+    for k in KERNELS:
+        k.launches = 0
+    sharded = {"throughput_sharded":
+               parallel.extract_sift_throughput_sharded(frames4, params, mesh4)}
+    sharded["batched"] = parallel.extract_sift_batched(frames4, params, mesh4)
+    sharded["throughput_sharded, all cards"] = parallel.extract_sift_throughput_sharded(
+        frames4, params, parallel.make_mesh())
+    torch.cuda.synchronize()
+    shard_launches = {k.name: k.launches for k in FUSED_PATH}
+    require(all(k.launches == 3 * 4 * params.num_octaves
+                for k in (dog.KERNEL, refine.KERNEL, orient_desc.KERNEL)),
+            f"sharded extraction launches {shard_launches}")
+    for what, got in sharded.items():
+        for i, single in enumerate(singles):
+            for f in ct.SiftData.__dataclass_fields__:
+                require(torch.equal(getattr(got, f)[i], getattr(single, f)),
+                        f"{what}: frame {i} {f} differs from the single call")
+    shard_wall = time_fn(lambda: parallel.extract_sift_throughput_sharded(frames4, params, mesh4),
+                         iters=5, warmup=1)
+    timings["throughput_sharded, 4 frames, 4-entry mesh"] = dict(wall_ms=shard_wall)
+    log(f"parallel, 4 frames of 1920x1080 on a mesh of one card four times and on "
+        f"{parallel.make_mesh().size} card(s): throughput_sharded and batched equal to four "
+        f"single calls; launches {shard_launches}; {shard_wall:.3f} ms a call (host clock) "
+        f"against {batch_wall:.3f} for extract_sift_throughput")
+
+    # The sharded matcher on the fused leaves flow's 32768-slot sets (8192
+    # columns a shard, on K4's 1024-column ranges) and on the dry run's
+    # 4096 x 16384 unit sets, against single-device K4. Tolerance: indices,
+    # best and second equal bit for bit (selections of the same 3xTF32
+    # scores), ambiguity within 1e-6 relative. Timed over 20 calls back to
+    # back against one K4 call.
+    rng_s = np.random.default_rng(SEED)
+    s1 = rng_s.standard_normal((4096, 128)).astype(np.float32)
+    s2 = rng_s.standard_normal((16384, 128)).astype(np.float32)
+    s1 /= np.linalg.norm(s1, axis=1, keepdims=True)
+    s2 /= np.linalg.norm(s2, axis=1, keepdims=True)
+    sets = {"leaves": lsets,
+            "4096x16384": (torch.as_tensor(s1, device=dev), torch.as_tensor(s2, device=dev),
+                           torch.tensor(4096, dtype=torch.int32, device=dev),
+                           torch.tensor(16384, dtype=torch.int32, device=dev))}
+    sharded_match = {}
+    for what, sset in sets.items():
+        torch.cuda.synchronize()
+        match.KERNEL.launches = 0
+        shb, shsec, shi = parallel.sharding._match_top2_sharded(*sset, mesh4, 512)
+        _, samb, si2 = parallel.match_descriptors_sharded(*sset, mesh4)
+        torch.cuda.synchronize()
+        require(match.KERNEL.launches == 8, f"sharded matcher on {what}: "
+                                            f"{match.KERNEL.launches} K4 launches for 2 x 4 shards")
+        rb, rsec, ri = match.match_top2(*sset)
+        ra = match.match_descriptors(*sset)[1]
+        require(torch.equal(shi, ri) and torch.equal(si2, ri),
+                f"sharded matcher on {what}: indices differ on {int((shi != ri).sum())} rows")
+        require(torch.equal(shb, rb) and torch.equal(shsec, rsec),
+                f"sharded matcher on {what}: best or second differ from single-device K4")
+        rel = float(((samb - ra).abs() / ra.abs().clamp(min=1e-30)).max())
+        require(rel <= 1e-6, f"sharded matcher on {what}: ambiguity differs by {rel} relative")
+        sharded_match[what] = dict(
+            ambiguity_max_rel_err=rel, ambiguity_bits_equal=bool(torch.equal(samb, ra)),
+            loop_ms=time_ms_loop(parallel.match_descriptors_sharded, *sset, mesh4, n=20),
+            single_loop_ms=time_ms_loop(match.match_descriptors, *sset, n=20))
+    results["match"]["sharded"] = sharded_match
+    log(f"parallel sharded matcher on a 4-entry mesh of one card: indices, best and second equal "
+        f"to single-device K4 bit for bit; {json.dumps(sharded_match)}")
+
+    stamp("dry run")
+    # The dry run of the whole multi-device flow (a 4-entry mesh over the
+    # cards there are), with the counters at 0 just before and read after.
+    torch.cuda.synchronize()
+    for k in KERNELS:
+        k.launches = 0
+    dry = dryrun_multichip(4)
+    torch.cuda.synchronize()
+    dry_launches = {k.name: k.launches for k in FUSED_PATH}
+    require(all(n > 0 for n in dry_launches.values()), f"dry run launches {dry_launches}")
+    log(f"dry run: {json.dumps(dry)}; launches {dry_launches}")
 
     # K5 on the split flow's own descriptor sets against K4, with the
     # agreement rule of phase 3.
@@ -1030,6 +1276,7 @@ def main() -> int:
             "split and fused paths disagree beyond the JAX package's bands")
 
     # ---- 4c. The demo CLI, the acquisition benchmark, the probes ----------
+    stamp("CLI, acquisition, probes")
     # The CLI on the card (its default device), in-process, on the
     # dead-leaves pair written as PGM files by the port's writer.
     expected_keys = {"num_pts1", "num_pts2", "overflow1", "overflow2", "num_fit",
@@ -1109,7 +1356,7 @@ def main() -> int:
                      **r})   # N-call times, the matchers' main-path shape
     # K1-K8, K3's fast sampler, P1, P2 and the launch-floor launcher.
     require(len(rows) == len(KERNELS) + 2, f"{len(rows)} kernel rows for {len(KERNELS)} kernels")
-    log(f"extraction timings (ms): {json.dumps(timings)}")
+    log(f"extraction, matching, RANSAC and IRLS timings (ms): {json.dumps(timings)}")
     log(f"wall time {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,9 @@
 // the best, the lowest index winning equal scores. Rows at or past n1 come
 // back zero. Outputs: score = max(best, 0), ambiguity = max(second, 0) /
 // (score + 1e-6) and index = max(argbest, 0), as the TPU wrapper returns
-// them. No score matrix is written to device memory.
+// them, and, when the caller passes a buffer for it, second = max(second,
+// 0) itself (the sharded matcher merges shards' triples with it). No score
+// matrix is written to device memory.
 //
 // Arithmetic. The default tier is 3xTF32 on m16n8k8 mma.sync: big =
 // cvt.rna.tf32(x), small = cvt.rna.tf32(x - big), and score = big.big +
@@ -228,12 +230,14 @@ match_partial_kernel(const float* __restrict__ d1, const float* __restrict__ d2,
 }
 
 // One thread per row: merge the live ranges' partials in order and write
-// the outputs; rows at or past n1 are zero.
+// the outputs (second_out only when it is not null); rows at or past n1 are
+// zero.
 __global__ void match_merge_kernel(int n1cap, int n2cap, const int* __restrict__ n1p,
                                    const int* __restrict__ n2p, int splits,
                                    const float* __restrict__ part_s,
                                    const int* __restrict__ part_i, float* __restrict__ score,
-                                   float* __restrict__ ambiguity, int* __restrict__ index) {
+                                   float* __restrict__ ambiguity, int* __restrict__ index,
+                                   float* __restrict__ second_out) {
     const int r = blockIdx.x * blockDim.x + threadIdx.x;
     if (r >= n1cap) return;
     const int n1 = min(*n1p, n1cap);
@@ -242,6 +246,7 @@ __global__ void match_merge_kernel(int n1cap, int n2cap, const int* __restrict__
         score[r] = 0.0f;
         ambiguity[r] = 0.0f;
         index[r] = 0;
+        if (second_out) second_out[r] = 0.0f;
         return;
     }
     float best = -1e30f, second = -1e30f;
@@ -252,9 +257,11 @@ __global__ void match_merge_kernel(int n1cap, int n2cap, const int* __restrict__
         merge(best, idx, second, part_s[2 * at], part_i[at], part_s[2 * at + 1]);
     }
     const float bs = fmaxf(best, 0.0f);
+    const float ss = fmaxf(second, 0.0f);
     score[r] = bs;
-    ambiguity[r] = fmaxf(second, 0.0f) / (bs + 1e-6f);
+    ambiguity[r] = ss / (bs + 1e-6f);
     index[r] = (idx == NO_INDEX) ? 0 : idx;
+    if (second_out) second_out[r] = ss;
 }
 
 template <bool BF16>
@@ -275,12 +282,12 @@ cudaError_t launch_partial(const float* d1, const float* d2, int n1cap, int n2ca
 }  // namespace
 
 // part_s (n1cap, splits, 2) f32 and part_i (n1cap, splits) int32 are the
-// caller's scratch, splits = ceil(n2cap / 1024). Launches the partial
-// kernel (when n2cap > 0) and the merge kernel.
+// caller's scratch, splits = ceil(n2cap / 1024). second (n1cap,) f32 may be
+// null. Launches the partial kernel (when n2cap > 0) and the merge kernel.
 extern "C" int match_descriptors(const float* d1, const float* d2, int n1cap, int n2cap,
                                  const int* n1, const int* n2, int use_bf16, int splits,
                                  float* part_s, int* part_i, float* score, float* ambiguity,
-                                 int* index, cudaStream_t stream) {
+                                 int* index, float* second, cudaStream_t stream) {
     if (n1cap == 0) return 0;
     if (splits != (n2cap + SPLIT - 1) / SPLIT) return (int)cudaErrorInvalidValue;
     if (splits > 0) {
@@ -293,6 +300,6 @@ extern "C" int match_descriptors(const float* d1, const float* d2, int n1cap, in
     }
     match_merge_kernel<<<(n1cap + 255) / 256, 256, 0, stream>>>(n1cap, n2cap, n1, n2, splits,
                                                                 part_s, part_i, score,
-                                                                ambiguity, index);
+                                                                ambiguity, index, second);
     return (int)cudaGetLastError();
 }

@@ -10,7 +10,10 @@ matrix is never written out, and no library GEMM is called. The wrapper
 allocates the per-range partials with ``torch.empty``. One call of the
 wrapper counts as one launch of ``KERNEL`` (the partial and the merge
 kernel together). Its plain version is ``ops.match.match_descriptors``,
-which CPU tensors take.
+which CPU tensors take. ``match_top2`` is the same launch with the merge
+kernel also writing each row's second-best score, the triple the sharded
+matcher (``parallel.sharding``) merges across shards; its plain version is
+``ops.match.match_top2``.
 
 K5 replaces the TPU kernel ``_sweep_candidates`` of the same file, reached
 by ``match_descriptors(..., rescore_k=k)``. The CUDA kernel
@@ -39,7 +42,7 @@ KERNEL = Kernel(
     "match.cu", "match_descriptors",
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
+     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
     replaces="cudasift_tpu/ops/pallas/match.py:255",
 )
 # Columns of the second set per block of K4 (``SPLIT`` in csrc/match.cu).
@@ -81,6 +84,28 @@ def sweep_candidates(d1: torch.Tensor, d2: torch.Tensor, n1, n2):
     return cand_s, cand_i
 
 
+def _launch_k4(d1: torch.Tensor, d2: torch.Tensor, n1, n2, use_bf16: bool,
+               with_second: bool):
+    """One launch of K4: (score, ambiguity, index, second), ``second`` None
+    unless ``with_second`` (the kernel then gets a null pointer for it)."""
+    n1_t, n2_t = _check_sets(d1, d2, n1, n2)
+    dev = d1.device
+    n1_cap, n2_cap = d1.shape[0], d2.shape[0]
+    splits = -(-n2_cap // MATCH_SPLIT)
+    # Scratch: each row's (best, second) and index per column range.
+    part_s = torch.empty((n1_cap, splits, 2), dtype=torch.float32, device=dev)
+    part_i = torch.empty((n1_cap, splits), dtype=torch.int32, device=dev)
+    score = torch.empty((n1_cap,), dtype=torch.float32, device=dev)
+    ambiguity = torch.empty((n1_cap,), dtype=torch.float32, device=dev)
+    index = torch.empty((n1_cap,), dtype=torch.int32, device=dev)
+    second = torch.empty((n1_cap,), dtype=torch.float32, device=dev) if with_second else None
+    KERNEL(dev, ptr(d1), ptr(d2), n1_cap, n2_cap, ptr(n1_t), ptr(n2_t),
+           1 if use_bf16 else 0, splits, ptr(part_s), ptr(part_i),
+           ptr(score), ptr(ambiguity), ptr(index),
+           None if second is None else ptr(second))
+    return score, ambiguity, index, second
+
+
 def match_descriptors(d1: torch.Tensor, d2: torch.Tensor, n1, n2,
                       use_bf16: bool = False, tile: int = 2048,
                       rescore_k: int | None = None):
@@ -95,17 +120,15 @@ def match_descriptors(d1: torch.Tensor, d2: torch.Tensor, n1, n2,
                                               sweep=sweep_candidates)
     if d1.device.type == "cpu":
         return plain.match_descriptors(d1, d2, n1, n2, tile=tile, use_bf16=use_bf16)
-    n1_t, n2_t = _check_sets(d1, d2, n1, n2)
-    dev = d1.device
-    n1_cap, n2_cap = d1.shape[0], d2.shape[0]
-    splits = -(-n2_cap // MATCH_SPLIT)
-    # Scratch: each row's (best, second) and index per column range.
-    part_s = torch.empty((n1_cap, splits, 2), dtype=torch.float32, device=dev)
-    part_i = torch.empty((n1_cap, splits), dtype=torch.int32, device=dev)
-    score = torch.empty((n1_cap,), dtype=torch.float32, device=dev)
-    ambiguity = torch.empty((n1_cap,), dtype=torch.float32, device=dev)
-    index = torch.empty((n1_cap,), dtype=torch.int32, device=dev)
-    KERNEL(dev, ptr(d1), ptr(d2), n1_cap, n2_cap, ptr(n1_t), ptr(n2_t),
-           1 if use_bf16 else 0, splits, ptr(part_s), ptr(part_i),
-           ptr(score), ptr(ambiguity), ptr(index))
-    return score, ambiguity, index
+    return _launch_k4(d1, d2, n1, n2, use_bf16, with_second=False)[:3]
+
+
+def match_top2(d1: torch.Tensor, d2: torch.Tensor, n1, n2,
+               use_bf16: bool = False, tile: int = 2048):
+    """(best, second, index): K4's triple before the division, each of
+    length N1; see ``ops.match.match_top2``. Arguments as
+    ``match_descriptors``'s."""
+    if d1.device.type == "cpu":
+        return plain.match_top2(d1, d2, n1, n2, tile=tile, use_bf16=use_bf16)
+    score, _, index, second = _launch_k4(d1, d2, n1, n2, use_bf16, with_second=True)
+    return score, second, index

@@ -23,14 +23,14 @@ from ..config import MatchParams
 from ..sift_data import SiftData
 
 
-def match_descriptors(d1: torch.Tensor, d2: torch.Tensor, n1, n2,
-                      tile: int = 2048, use_bf16: bool = False):
-    """Best/second-best cosine scores of ``d1`` rows against ``d2`` rows.
+def match_top2(d1: torch.Tensor, d2: torch.Tensor, n1, n2,
+               tile: int = 2048, use_bf16: bool = False):
+    """Best and second-best cosine scores of ``d1`` rows against ``d2`` rows.
 
     d1 (N1, 128), d2 (N2, 128), with only the first ``n1``/``n2`` rows
-    valid. Returns (score, ambiguity, index), each of length N1, with best
-    and second clamped at 0, ``ambiguity = second / (best + 1e-6)`` and the
-    lowest index winning ties; rows at or past ``n1`` are zero.
+    valid. Returns (best, second, index), each of length N1, with best and
+    second clamped at 0 and the lowest index winning ties; rows at or past
+    ``n1`` are zero. The plain version of ``ops/cuda/match.py:match_top2``.
     """
     n1_cap = d1.shape[0]
     n2_cap = d2.shape[0]
@@ -59,9 +59,17 @@ def match_descriptors(d1: torch.Tensor, d2: torch.Tensor, n1, n2,
     index = torch.clamp(index, min=0).to(torch.int32)
     rows = torch.arange(n1_cap, device=dev) < n1
     zero = torch.zeros((), dtype=torch.float32, device=dev)
-    return (torch.where(rows, best, zero),
-            torch.where(rows, second / (best + 1e-6), zero),
+    return (torch.where(rows, best, zero), torch.where(rows, second, zero),
             torch.where(rows, index, 0))
+
+
+def match_descriptors(d1: torch.Tensor, d2: torch.Tensor, n1, n2,
+                      tile: int = 2048, use_bf16: bool = False):
+    """(score, ambiguity, index), each of length N1: ``match_top2``'s best
+    and index, and ``ambiguity = second / (best + 1e-6)``; rows at or past
+    ``n1`` are zero."""
+    best, second, index = match_top2(d1, d2, n1, n2, tile=tile, use_bf16=use_bf16)
+    return best, second / (best + 1e-6), index
 
 
 # Hybrid tier: columns per chunk of the sweep, the score of a masked column
@@ -174,6 +182,9 @@ def match_sift_data(data1: SiftData, data2: SiftData, tile: int | None = None,
     On CUDA tensors the matcher kernel runs (``use_pallas=False`` raises
     there); CPU tensors take its plain version. ``params`` supplies the
     defaults for ``tile``/``use_bf16``; explicit keyword arguments win.
+    Unlike RANSAC and IRLS it is not a captured program: one kernel and
+    five elementwise operations leave a graph no dispatch to save, and a
+    replay would first copy both descriptor sets in.
     """
     from .cuda.match import match_descriptors as match_kernel
 

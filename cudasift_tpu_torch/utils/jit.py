@@ -4,9 +4,12 @@
 There ``tpu_jit`` makes a function one compiled program per (shapes,
 statics), so that the host dispatches once a call. Its TPU compile flag has
 no counterpart on a CUDA card; its one-program role has, as a CUDA graph.
-``cuda_graph_jit`` wraps a function of CUDA tensors and hashable statics
-(``SiftParams`` is a frozen dataclass) and keeps one captured program per
-(argument shapes and dtypes, statics, device index):
+``cuda_graph_jit`` wraps a function whose positional arguments are CUDA
+tensors, tuples, lists or dataclass instances of them (a ``SiftData``), and
+hashable statics (``SiftParams`` is a frozen dataclass), and keeps one
+captured program per (argument structure with the tensors' shapes and
+dtypes, statics, device index). An argument that holds a tensor anywhere is
+taken apart (``tensors``); one that holds none is a static:
 
 - the first call for a key runs the body eagerly on the caller's stream and
   returns that result: the run builds and loads the kernels, sets their
@@ -83,11 +86,38 @@ def map_tensors(fn, obj):
     return obj
 
 
+def tensors(obj) -> list[torch.Tensor]:
+    """Every tensor in ``obj``, in the order ``map_tensors`` visits them."""
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if isinstance(obj, (tuple, list)):
+        return [t for v in obj for t in tensors(v)]
+    if isinstance(obj, dict):
+        return [t for v in obj.values() for t in tensors(v)]
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return [t for f in dataclasses.fields(obj) for t in tensors(getattr(obj, f.name))]
+    return []
+
+
+def _signature(obj):
+    """The key of one argument: a static as it is; an argument holding
+    tensors as its structure, with (shape, dtype) in place of each tensor."""
+    if isinstance(obj, torch.Tensor):
+        return tuple(obj.shape), obj.dtype
+    if not tensors(obj):
+        return obj
+    if isinstance(obj, dict):
+        return dict, tuple((k, _signature(v)) for k, v in obj.items())
+    if isinstance(obj, (tuple, list)):
+        return type(obj), tuple(_signature(v) for v in obj)
+    return type(obj), tuple(_signature(getattr(obj, f.name)) for f in dataclasses.fields(obj))
+
+
 def _graph_device(args) -> torch.device | None:
-    """The CUDA device of the tensor arguments, None when they are on the
-    CPU (or there are none): the body then runs as it is. Tensors on
+    """The CUDA device of the tensors in the arguments, None when they are
+    on the CPU (or there are none): the body then runs as it is. Tensors on
     different devices raise."""
-    devices = {a.device for a in args if isinstance(a, torch.Tensor)}
+    devices = {t.device for t in tensors(args)}
     if len(devices) > 1:
         raise ValueError(f"tensor arguments on different devices: {sorted(map(str, devices))}")
     device = next(iter(devices), None)
@@ -102,7 +132,7 @@ class Program:
 
     def __init__(self, fn, args, device: torch.device):
         self.device = device
-        self.static = [a.clone() if isinstance(a, torch.Tensor) else a for a in args]
+        self.static = map_tensors(torch.clone, args)
         self.graph = torch.cuda.CUDAGraph()
         before = launch_counts()
         with torch.cuda.device(device):
@@ -122,9 +152,8 @@ class Program:
         with torch.cuda.device(self.device):
             # Behind the previous call, which may have been on another stream.
             self.done.wait()
-            for buf, a in zip(self.static, args):
-                if isinstance(buf, torch.Tensor):
-                    buf.copy_(a)
+            for buf, a in zip(tensors(self.static), tensors(args)):
+                buf.copy_(a)
             self.graph.replay()
             out = map_tensors(torch.clone, self.outputs)
             self.done.record()
@@ -146,9 +175,10 @@ class GraphJit:
 
     @staticmethod
     def key(args, device: torch.device) -> tuple:
-        """(device index, per argument its (shape, dtype) or the static)."""
-        return (device.index,) + tuple(
-            (tuple(a.shape), a.dtype) if isinstance(a, torch.Tensor) else a for a in args)
+        """(device index, per argument its signature: a tensor's (shape,
+        dtype), a structure's type and its parts' signatures, or the
+        static)."""
+        return (device.index,) + tuple(_signature(a) for a in args)
 
     def __call__(self, *args):
         device = _graph_device(args)
@@ -172,6 +202,7 @@ class GraphJit:
 
 
 def cuda_graph_jit(fn) -> GraphJit:
-    """Decorator: ``fn`` of CUDA tensors and hashable statics, positional
-    arguments only, as one captured program per key."""
+    """Decorator: ``fn`` of CUDA tensors (alone or in tuples, lists or
+    dataclass instances) and hashable statics, positional arguments only, as
+    one captured program per key."""
     return GraphJit(fn)

@@ -1,7 +1,10 @@
 """The CUDA kernels (K1-K8 with K3's three samplers, the patch-acquisition
 kernels P1 and the probes P2) against their plain versions on the card, the
 pipeline, fused and split, on the card against the CPU, the entry points'
-captured programs against their eager runs, and the demo CLI on the card. Marked ``gpu``: they skip without a CUDA device. On the card run
+captured programs (extraction, RANSAC, IRLS) against their eager
+runs, the sharded matcher and extraction and the dry run of
+``cudasift_tpu_torch.parallel`` on a mesh that repeats the card, and the
+demo CLI on the card. Marked ``gpu``: they skip without a CUDA device. On the card run
 them with ``python -m pytest tests/test_torch_gpu.py -q --noconftest``: the
 conftest only configures jax, which these tests do not use."""
 
@@ -678,3 +681,136 @@ def test_graph_capture_failure_raises(cuda):
     assert not bad.programs
     with jit.disable_graphs():
         assert float(bad(x)[0]) == 9.0
+
+
+# ---- K4's second output; RANSAC and IRLS as captured programs; parallel -----
+
+@pytest.mark.parametrize("use_bf16", [False, True])
+def test_match_kernel_second_output(cuda, use_bf16):
+    """K4 with its second-best output against the plain triple; the call
+    without it (a null pointer) gives the same score, ambiguity and index bit
+    for bit, and ambiguity is second / (score + 1e-6) to the bit."""
+    g = torch.Generator(device=cuda).manual_seed(55)
+    d1 = torch.nn.functional.normalize(torch.randn(700, 128, device=cuda, generator=g), dim=1)
+    d2 = torch.nn.functional.normalize(torch.randn(2500, 128, device=cuda, generator=g), dim=1)
+    for n1, n2 in ((700, 2500), (650, 601), (700, 0), (0, 2500)):
+        before = match.KERNEL.launches
+        best, second, index = match.match_top2(d1, d2, n1, n2, use_bf16=use_bf16)
+        score, amb, idx = match.match_descriptors(d1, d2, n1, n2, use_bf16=use_bf16)
+        assert match.KERNEL.launches == before + 2
+        ref = match_plain.match_top2(d1, d2, n1, n2, use_bf16=use_bf16)
+        assert torch.equal(index, ref[2]), (n1, n2)
+        torch.testing.assert_close(best, ref[0], rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(second, ref[1], rtol=1e-5, atol=1e-6)
+        assert torch.equal(best, score) and torch.equal(index, idx)
+        assert torch.equal(amb, second / (best + 1e-6))
+        assert not second[n1:].any()
+
+
+def matched_flow(cuda, seed=80):
+    """A small dead-leaves pair through extraction and the matcher, and its
+    true homography."""
+    h, w = 240, 320
+    frame = synth.make_leaves_image(h, w, seed)
+    h_true = synth.known_homography(h, w)
+    params = ct.SiftParams(num_octaves=3, thresh=2.0, max_pts=2048)
+    da = ct.extract_sift(torch.as_tensor(frame, device=cuda), params)
+    db = ct.extract_sift(torch.as_tensor(synth.warp_image(frame, h_true), device=cuda), params)
+    return da, db, h_true
+
+
+def test_match_and_homography_programs_equal_eager(cuda):
+    """``find_homography`` and ``improve_homography`` behind the eager
+    ``match_sift_data``: the first call (eager, then captured), replays, a
+    replay on another pair and one at other thresholds each equal the eager
+    run bit for bit, with equal launch counts; the generator advances as in
+    the eager run."""
+    from cudasift_tpu_torch.ops import homography
+
+    progs = (homography._find_homography_jit, homography._improve_homography_jit)
+    for p in progs:
+        p.clear_cache()
+    pairs = [matched_flow(cuda, s)[:2] for s in (80, 81)]
+    gen = torch.Generator(device=cuda)
+
+    def flow(da, db, thresh=5.0):
+        gen.manual_seed(3)
+        m = ct.match_sift_data(da, db)
+        h1, nm = ct.find_homography(m, gen, num_loops=2048, min_score=0.0,
+                                    max_ambiguity=0.9, thresh=thresh)
+        h2, nfit, err = ct.improve_homography(m, h1, 5, 0.0, 0.9, thresh - 2.0)
+        after = torch.rand(2, generator=gen, device=cuda)
+        return (m, h1, nm, h2, nfit, err, after)
+
+    def counted(fn, *args):
+        for k in LIBRARY:
+            k.launches = 0
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out, {k.name: k.launches for k in LIBRARY}
+
+    args = [pairs[0], pairs[1], pairs[0] + (4.0,)]
+    with jit.disable_graphs():
+        eager = [counted(flow, *a) for a in args]
+    assert not any(p.programs for p in progs)
+    assert eager[0][1]["match"] == 1 and int(eager[0][0][4]) > 50
+    for call, which in (("first", 0), ("replay", 0), ("other pair", 1), ("thresholds", 2),
+                        ("back", 0)):
+        got, launches = counted(flow, *args[which])
+        ref, ref_launches = eager[which]
+        assert launches == ref_launches, call
+        assert_sift_equal(got[0], ref[0], call)
+        for a, b in zip(got[1:], ref[1:]):
+            assert torch.equal(a, b), call
+    assert all(len(p.programs) == 1 for p in progs)
+
+
+def test_sharded_matcher_on_a_repeated_device_mesh(cuda):
+    """Four shards on one card: the indices, best and second equal
+    single-device K4's bit for bit (the same 3xTF32 scores, selected), the
+    ambiguity within 1e-6 relative; K4 launched once a shard."""
+    from cudasift_tpu_torch import parallel
+
+    mesh = parallel.Mesh((cuda,) * 4)
+    g = torch.Generator(device=cuda).manual_seed(56)
+    d1 = torch.nn.functional.normalize(torch.randn(1500, 128, device=cuda, generator=g), dim=1)
+    d2 = torch.nn.functional.normalize(torch.randn(5000, 128, device=cuda, generator=g), dim=1)
+    for n1, n2 in ((1500, 5000), (1400, 4321), (1500, 700)):
+        n1_t = torch.tensor(n1, dtype=torch.int32, device=cuda)
+        n2_t = torch.tensor(n2, dtype=torch.int32, device=cuda)
+        before = match.KERNEL.launches
+        score, amb, index = parallel.match_descriptors_sharded(d1, d2, n1_t, n2_t, mesh)
+        assert match.KERNEL.launches == before + 4
+        merged = parallel.sharding._match_top2_sharded(d1, d2, n1_t, n2_t, mesh, 512)
+        best, second, ref_index = match.match_top2(d1, d2, n1_t, n2_t)
+        assert torch.equal(index, ref_index) and torch.equal(score, best), (n1, n2)
+        assert torch.equal(merged[0], best) and torch.equal(merged[1], second), (n1, n2)
+        torch.testing.assert_close(amb, second / (best + 1e-6), rtol=1e-6, atol=0)
+
+
+def test_sharded_extraction_on_a_repeated_device_mesh(cuda):
+    from cudasift_tpu_torch import parallel
+
+    params = ct.SiftParams(num_octaves=3, thresh=2.0, max_pts=2048)
+    frames = torch.stack([torch.as_tensor(make_test_image(192, 256, seed=s), device=cuda)
+                          for s in (82, 83, 84, 85)])
+    with jit.disable_graphs():
+        singles = [ct.extract_sift(f, params) for f in frames]
+    mesh = parallel.Mesh((cuda,) * 4)
+    for fn in (parallel.extract_sift_throughput_sharded, parallel.extract_sift_batched):
+        for _ in range(2):                               # captured, then replayed
+            got = fn(frames, params, mesh)
+        torch.cuda.synchronize()
+        for i, single in enumerate(singles):
+            for name in ct.SiftData.__dataclass_fields__:
+                assert torch.equal(getattr(got, name)[i], getattr(single, name)), (fn, i, name)
+    assert len(parallel.make_mesh().devices) == torch.cuda.device_count()
+    with pytest.raises(ValueError, match="not divisible"):
+        parallel.extract_sift_throughput_sharded(frames[:3], params, mesh)
+
+
+def test_dryrun_on_the_card(cuda):
+    from cudasift_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    out = dryrun_multichip(4)
+    assert len(out["num_pts"]) == 4 and all(d.startswith("cuda") for d in out["devices"])

@@ -87,8 +87,7 @@ def test_find_and_improve_homography_match_jax(monkeypatch):
     key = jax.random.PRNGKey(0)
     u = torch.tensor(np.asarray(jax.random.uniform(key, (loops, 4))))
     # The port's sampler takes JAX's uniform draws instead of its generator's.
-    monkeypatch.setattr(thom, "_sample_distinct_quads",
-                        lambda gen, num_loops, num_valid: thom._distinct_quads(u, num_valid))
+    monkeypatch.setattr(thom, "_uniform_draws", lambda gen, num_loops, device: u.to(device))
     jh, jnm = jhom.find_homography(jdata, key, num_loops=loops, min_score=0.0,
                                    max_ambiguity=0.8, thresh=5.0)
     th, tnm = thom.find_homography(tdata, None, num_loops=loops, min_score=0.0,
@@ -118,6 +117,28 @@ def test_distinct_quads_match_jax():
         np.testing.assert_array_equal(ours, ref)
         if n >= 8:
             assert all(len(set(q)) == 4 for q in ours.tolist())
+
+
+def test_split_sampler_draws_as_before():
+    """The draws made outside the program and the quads made inside it are,
+    for a fixed generator (or the default one), what one sampler made before
+    the split, and leave the generator in the same state."""
+    def sample_in_one(generator, num_loops, num_valid):
+        gdev = generator.device if generator is not None else torch.device("cpu")
+        u = torch.rand((num_loops, 4), generator=generator, device=gdev)
+        return thom._distinct_quads(u.to(num_valid.device), num_valid)
+
+    n = torch.tensor(37, dtype=torch.int32)
+    g_old, g_new = torch.Generator().manual_seed(11), torch.Generator().manual_seed(11)
+    for loops in (64, 1024):
+        old = sample_in_one(g_old, loops, n)
+        new = thom._distinct_quads(thom._uniform_draws(g_new, loops, n.device), n)
+        assert torch.equal(old, new)
+    assert torch.equal(torch.rand(4, generator=g_old), torch.rand(4, generator=g_new))
+    torch.manual_seed(12)
+    old = sample_in_one(None, 128, n)
+    torch.manual_seed(12)
+    assert torch.equal(old, thom._distinct_quads(thom._uniform_draws(None, 128, n.device), n))
 
 
 def test_port_recovers_known_transform_and_gates_small_sets():

@@ -20,6 +20,17 @@ from cudasift_tpu_torch.utils.build import Kernel, add_launches, launch_counts
 from cudasift_tpu_torch.utils.synth import make_test_image
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for this file's CPU work. The suite runs files in
+    parallel worker processes; a worker spinning a full OpenMP pool beside
+    the others slows every worker many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @dataclasses.dataclass
 class Pair:
     total: torch.Tensor
@@ -111,9 +122,7 @@ def fake_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "Stream", lambda device=None: ("side stream", device))
     monkeypatch.setattr(torch.cuda, "Event", FakeEvent)
     monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: False)
-    monkeypatch.setattr(jit, "_graph_device",
-                        lambda args: dev if any(isinstance(a, torch.Tensor) for a in args)
-                        else None)
+    monkeypatch.setattr(jit, "_graph_device", lambda args: dev if jit.tensors(args) else None)
     return dev, events
 
 
@@ -244,6 +253,139 @@ def test_tensors_on_two_devices_raise():
         jit._graph_device((torch.zeros(2), torch.zeros(2, device="meta")))
     assert jit._graph_device((torch.zeros(2), 3, "x")) is None
     assert jit._graph_device((1, 2)) is None
+    # Tensors nested in a SiftData or a tuple count too.
+    d = ct.init_sift_data(4, device="cpu")
+    with pytest.raises(ValueError, match="different devices"):
+        jit._graph_device((dataclasses.replace(d, score=torch.zeros(4, device="meta")),))
+    with pytest.raises(ValueError, match="different devices"):
+        jit._graph_device((d, (3, [torch.zeros(1, device="meta")])))
+    assert jit._graph_device((d, ct.SiftParams())) is None
+
+
+def test_nested_tensors_are_flattened_copied_in_and_keyed(fake_card):
+    """A SiftData and a tuple of tensors as arguments: every tensor in them
+    is copied into the program's static buffers at a replay, and the key
+    holds their structure with the tensors' shapes; statics stay as they
+    are."""
+    dev, _ = fake_card
+    runs = []
+
+    @jit.cuda_graph_jit
+    def body(data, pair, k):
+        runs.append(data)
+        return data.xpos * k + pair[0], pair[1][0].sum()
+
+    d1 = ct.init_sift_data(8, device="cpu")
+    d1.xpos += 1.0
+    pair = (torch.arange(8.0), [torch.ones(3)])
+    first = body(d1, pair, 2.0)
+    assert len(runs) == 2 and runs[1] is not d1 and runs[1].xpos is not d1.xpos
+    (program,) = body.programs.values()
+    assert isinstance(program.static[0], ct.SiftData)
+    assert torch.equal(program.static[0].xpos, d1.xpos)
+    assert torch.equal(first[0], torch.full((8,), 2.0) + torch.arange(8.0))
+    key = body.key((d1, pair, 2.0), dev)
+    assert key[0] == dev.index and key[3] == 2.0 and key[1][0] is ct.SiftData
+    assert key[1][1][1] == ((8,), torch.float32) and key[1][1][-2] == ((8, 128), torch.float32)
+    assert key[2] == (tuple, (((8,), torch.float32), (list, (((3,), torch.float32),))))
+    assert len(jit.tensors(d1)) == 16 and jit.tensors(pair)[1] is pair[1][0]
+    assert body.key((ct.SiftParams(),), dev) == (0, ct.SiftParams())
+
+    # A replay with other values: every nested tensor is copied in.
+    d2 = dataclasses.replace(d1, xpos=torch.full((8,), 5.0),
+                             match=torch.zeros(8, dtype=torch.int32))
+    pair2 = (torch.zeros(8), [torch.full((3,), 2.0)])
+    body(d2, pair2, 2.0)
+    assert len(runs) == 2 and len(body.programs) == 1
+    for buf, a in zip(jit.tensors(program.static), jit.tensors((d2, pair2, 2.0))):
+        assert torch.equal(buf, a) and buf is not a
+    # Another capacity, another nested shape or another static: new programs.
+    body(ct.init_sift_data(16, device="cpu"), (torch.zeros(16), [torch.ones(3)]), 2.0)
+    body(d1, (torch.arange(8.0), [torch.ones(4)]), 2.0)
+    body(d1, pair, 3.0)
+    assert len(body.programs) == 4 and len(runs) == 8
+    body.clear_cache()
+
+
+def _host_reads(fn, *args):
+    """Operations of ``fn(*args)`` that read a tensor on the host or make
+    one from host data: under a capture on the card each would raise."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    seen = []
+
+    class Watch(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.__name__.startswith(("_local_scalar_dense", "lift_fresh")):
+                seen.append(func.__name__)
+            return func(*args, **(kwargs or {}))
+
+    with Watch():
+        fn(*args)
+    return seen
+
+
+@pytest.fixture(scope="module")
+def matched_pair():
+    """Two small dead-leaves frames, extracted and matched on the CPU, and
+    their true homography."""
+    from cudasift_tpu_torch.utils import synth
+
+    p = ct.SiftParams(num_octaves=2, thresh=2.0, max_pts=1024)
+    h_true = synth.known_homography(128, 160)
+    frame = synth.make_leaves_image(128, 160, 0)
+    da = ct.extract_sift(frame, p, device="cpu")
+    db = ct.extract_sift(synth.warp_image(frame, h_true), p, device="cpu")
+    return da, db, ct.match_sift_data(da, db), h_true
+
+
+@pytest.mark.parametrize("program", ["match", "find_homography", "improve_homography"])
+def test_program_bodies_read_nothing_on_the_host(program, matched_pair):
+    """The calls read no tensor on the host and build none from host data,
+    checked on the CPU by the operations they dispatch. Inside a captured
+    body either would raise on the card (indexing with the winner's 0-d
+    index reads it, an identity from a host list copies it in); outside it
+    a copy from host memory waits for the stream (thresholds made with
+    ``torch.tensor``). ``match_sift_data`` runs eagerly on the card and reads
+    nothing on the host either, so a flow never waits on it."""
+    da, db, m, h_true = matched_pair
+    calls = {
+        "match": (ct.match_sift_data, da, db),
+        "find_homography": (ct.find_homography, m, torch.Generator().manual_seed(0), 256,
+                            0.0, 0.95, 5.0),
+        "improve_homography": (ct.improve_homography, m,
+                               torch.as_tensor(h_true, dtype=torch.float32), 5, 0.0, 0.95, 3.0),
+    }
+    assert _host_reads(*calls[program]) == []
+
+
+def test_thresholds_are_data_not_keys(fake_card, matched_pair):
+    """Two thresholds, one program: ``find_homography`` and
+    ``improve_homography`` key their programs by shapes (and IRLS by its
+    loop count), and copy the thresholds in at a replay. The programs copy
+    in the matched points' fields, not the descriptors."""
+    from cudasift_tpu_torch.ops import homography as hom
+
+    _, _, m, h_true = matched_pair
+    h = torch.as_tensor(h_true, dtype=torch.float32)
+    gen = torch.Generator()
+    for fn in (hom._find_homography_jit, hom._improve_homography_jit):
+        fn.clear_cache()
+    for thresh, max_amb in ((5.0, 0.95), (4.0, 0.8)):
+        ct.find_homography(m, gen, num_loops=256, min_score=0.0, max_ambiguity=max_amb,
+                           thresh=thresh)
+        ct.improve_homography(m, h, 5, 0.0, max_amb, thresh / 2)
+    for fn, thresh in ((hom._find_homography_jit, 4.0), (hom._improve_homography_jit, 2.0)):
+        (program,) = fn.programs.values()
+        assert program.graph.replays == 1
+        # The second call's thresholds sit in the static buffers it replayed.
+        assert [float(t) for t in jit.tensors(program.static)[-3:]] == [0.0, 0.800000011920929,
+                                                                        thresh]
+        assert not any(t.shape == m.data.shape for t in jit.tensors(program.static))
+    ct.improve_homography(m, h, 4, 0.0, 0.8, 2.0)
+    assert len(hom._improve_homography_jit.programs) == 2
+    for fn in (hom._find_homography_jit, hom._improve_homography_jit):
+        fn.clear_cache()
 
 
 def keyset(x, y, s, n):
