@@ -45,17 +45,29 @@ rtol 1e-5 of the plain version. Both are timed graph-replayed and back to
 back, in the same order of turns.
 
 K4 (``match.cu``): the other tree's entry ``match_descriptors`` is bound
-with the arguments it had before its optional ``second`` output (13 and the
-stream); its score, ambiguity and index must equal this tree's call without
-that output bit for bit, in both tiers, at 4096 x 4096 (n2 4001) and on the
+with its optional ``second`` output pointer null (a tree whose entry has
+it: 14 arguments and the stream); its score, ambiguity and index must equal this
+tree's call bit for bit, in both tiers, at 4096 x 4096 (n2 4001) and on the
 fused dead-leaves pair's 32768-slot sets (``match_bits_equal``), and both
 are timed graph-replayed in the same order of turns (``match``).
+
+P1 (``acquire.cu``) and the four P2 probes redesigned with it
+(``slice_rows``, ``lane_lane_dot``, ``strided_rows``, ``small_dot`` in
+``probes.cu``): the other tree's launchers, which keep their C entry points
+and arguments, run under this tree's wrappers, P1 on ``chip_smoke.py``'s
+bench inputs (2048 keypoints on a 1136 x 2176 frame) in its four variants,
+each probe on its probe inputs; both trees must equal the plain versions
+(P1 at rtol 1e-5, the probes exactly or within 1e-3 for the two products),
+then each is graph-replayed in turns (``acquire``, ``probes``); P1 also on
+the first 8 keypoints alone, one block, where the time is the latency of
+one block's loads above the launch floor (``..._one_block_...``).
 Prints the card's name and power limit, then one JSON line.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import json
 import subprocess
 import sys
@@ -87,8 +99,8 @@ def main(argv: list[str]) -> int:
     import cudasift_tpu_torch as ct
     from cudasift_tpu_torch.ops import convolve, detect
     from cudasift_tpu_torch.ops import orient as orient_plain
-    from cudasift_tpu_torch.ops.cuda import (compact, descriptor, dog, match, orient, orient_desc,
-                                             refine)
+    from cudasift_tpu_torch.ops.cuda import (acquire, compact, descriptor, dog, match, orient,
+                                             orient_desc, probes, refine)
     from cudasift_tpu_torch.pipeline import _compact
     from cudasift_tpu_torch.utils import synth
     from cudasift_tpu_torch.utils.build import Kernel, ptr
@@ -176,9 +188,9 @@ def main(argv: list[str]) -> int:
                  ptr(orientation), ptr(count), n, ptr(desc))
         return desc
 
-    # K4 before its second output: the entry without the last pointer.
+    # K4 with a null second-best output.
     other_k4 = Kernel(str(other_csrc / "match.cu"), match.KERNEL.symbol,
-                      match.KERNEL.argtypes[:-1], flags=match.KERNEL.flags, name="other_match")
+                      match.KERNEL.argtypes, flags=match.KERNEL.flags, name="other_match")
 
     def other_match(d1, d2, n1, n2, use_bf16=False):
         dev_ = d1.device
@@ -190,7 +202,7 @@ def main(argv: list[str]) -> int:
                 torch.empty((n1cap,), dtype=torch.float32, device=dev_),
                 torch.empty((n1cap,), dtype=torch.int32, device=dev_))
         other_k4(dev_, ptr(d1), ptr(d2), n1cap, n2cap, ptr(n1), ptr(n2), int(use_bf16), splits,
-                 ptr(part_s), ptr(part_i), *(ptr(o) for o in outs))
+                 ptr(part_s), ptr(part_i), *(ptr(o) for o in outs), None)
         return outs
 
     dev = torch.device("cuda", 0)
@@ -422,6 +434,70 @@ def main(argv: list[str]) -> int:
     out["match_bits_equal"] = bits
     out["match"] = row
     print(f"match: bits equal {json.dumps(bits)}; {json.dumps(row)}", flush=True)
+
+    # P1 and the four redesigned P2 probes: the other tree's launcher swapped
+    # in for the length of a call (a captured call keeps the one it launched).
+    def under(table, key, kernel, fn):
+        def call(*args):
+            own = table[key]
+            table[key] = kernel
+            try:
+                return fn(*args)
+            finally:
+                table[key] = own
+        return call
+
+    def first_args(kernel, nargs, dev, *args):
+        return kernel(dev, *args[:nargs])
+
+    a_img, a_oy, a_ox, a_rxy = acquire.bench_inputs(2048, H, W, SEED)
+    a_args = tuple(torch.as_tensor(a, device=dev) for a in (a_img, a_oy, a_ox, a_rxy))
+    row = {}
+    for name, staged, roll in acquire.VARIANTS:
+        kern = acquire.KERNELS[(staged, roll)]
+        # This tree's staged launchers take one more pointer (the TMA count),
+        # which the other tree's may not: it is dropped for the other one.
+        other_args = len(kern.argtypes) - 1 if staged else len(kern.argtypes)
+        other_kern = Kernel(str(other_csrc / "acquire.cu"), kern.symbol,
+                            kern.argtypes[:other_args], name=f"other_{kern.name}")
+        other = functools.partial(first_args, other_kern, other_args)
+        fns = {"other": under(acquire.KERNELS, (staged, roll), other, acquire.acquire),
+               "this": acquire.acquire}
+        args = a_args + (staged, roll)
+        ref = acquire.acquire_plain(*a_args, roll)
+        for side, fn in fns.items():
+            if not torch.allclose(fn(*args), ref, rtol=1e-5, atol=0.0):
+                raise RuntimeError(f"chip_ab: P1 {name} ({side}) differs from the plain version")
+        one_block = (a_args[0], a_args[1][:8], a_args[2][:8], a_args[3], staged, roll)
+        for side in ("other", "this", "this", "other"):
+            row.setdefault(f"{kern.name}_{side}_graph_ms", []).append(
+                timers["graph_ms"](fns[side], args))
+            row.setdefault(f"{kern.name}_one_block_{side}_graph_ms", []).append(
+                timers["graph_ms"](fns[side], one_block))
+    out["acquire"] = row
+    print(f"acquire: {json.dumps(row)}", flush=True)
+    row = {}
+    globals_ = vars(probes)
+    for p in probes.PROBES:
+        attr = next((a for a in ("SLICE_ROWS", "LANE_LANE_DOT", "STRIDED_ROWS", "SMALL_DOT")
+                     if globals_[a] is p.kernel), None)
+        if attr is None:
+            continue
+        other = Kernel(str(other_csrc / "probes.cu"), p.kernel.symbol, p.kernel.argtypes,
+                       name=f"other_{p.kernel.name}")
+        fns = {"other": under(globals_, attr, other, p.fn), "this": p.fn}
+        args = p.inputs(dev)
+        tol = 1e-3 if p.kernel in (probes.LANE_LANE_DOT, probes.SMALL_DOT) else 0.0
+        for side, fn in fns.items():
+            got = fn(*args)
+            if not p.judge(got.cpu().numpy(), args)[0] or float(
+                    (got - p.plain(*args)).abs().max()) > tol:
+                raise RuntimeError(f"chip_ab: P2 {p.name} ({side}) fails its check")
+        for side in ("other", "this", "this", "other"):
+            row.setdefault(f"{p.kernel.name}_{side}_graph_ms", []).append(
+                timers["graph_ms"](fns[side], args))
+    out["probes"] = row
+    print(f"probes: {json.dumps(row)}", flush=True)
 
     flat = mask.reshape(-1)
     nonzero_static = lambda f: torch.nonzero_static(f, size=cap, fill_value=0)  # noqa: E731

@@ -14,7 +14,8 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    time without the host's dispatch), K1, K8 and the matchers also over 100
    calls back to back (``loop_ms``); beside them the least time the card
    could take (``bound_ms``) and, where one PyTorch call computes the same
-   function, that call's time (``library_ms``; the port never calls it).
+   function, that call's time (``library_ms``; the port never calls it),
+   also graph-replayed (``library_graph_ms``).
    K3 in its samplers, also on the octave-0 keypoints of the dead-leaves
    frame (the main path's shape) and run twice for equal bits; K6 with its
    peak search inside (the peaks equal to ``histogram_peaks`` of its own
@@ -416,8 +417,9 @@ def main() -> int:
     # one float32 product on the CUDA cores, the bound of the kernel before
     # the tensor cores). Library: torch.mm and torch.topk(k=2), two calls (no
     # single call computes a top-2 match). Times: the median single call
-    # (ms) and 100 calls back to back (loop_ms), with the counts on the card
-    # so that no call waits for the host.
+    # (ms), 100 calls back to back (loop_ms), with the counts on the card
+    # so that no call waits for the host, and 100 calls replayed from one
+    # CUDA graph (graph_ms; library_graph_ms for the library's two calls).
     top2 = lambda a, b, n: torch.topk(torch.mm(a, b[:n].t()), 2, dim=1)  # noqa: E731
     match_bytes = 2 * 4096 * 128 * 4 + 3 * 4096 * 4
     match_ops = 2.0 * 4096 * 4001 * 128
@@ -431,6 +433,7 @@ def main() -> int:
         bound_f32_ms=bound(match_bytes, match_ops)[0],
         library_ms=time_ms(top2, d1, d2, 4001),
         library_loop_ms=time_ms_loop(top2, d1, d2, 4001, n=100),
+        library_graph_ms=time_ms_graph(top2, d1, d2, 4001),
         second_max_abs_err=float((tsec - psec).abs().max()))
     # The bfloat16 tier (use_bf16) against its plain version: scores at
     # rtol 1e-5 / atol 1e-6; indices equal but at near-ties of the rounded
@@ -644,7 +647,8 @@ def main() -> int:
         bound=bound(2 * 4096 * 128 * 4 + 4096 * 2 * nch * 8, 3 * 2.0 * 4096 * 4001 * 128,
                     "bf16"),
         library_ms=time_ms(top2, d1, d2, 4001),
-        library_loop_ms=results["match"]["library_loop_ms"])
+        library_loop_ms=results["match"]["library_loop_ms"],
+        library_graph_ms=results["match"]["library_graph_ms"])
     log(f"K5 with its rescore (the whole rescore_k=8 tier): "
         f"{time_ms(match.match_descriptors, d1, d2, 4096, n2, False, 2048, 8):.4f} ms, "
         f"plain {time_ms(match_plain.match_descriptors_hybrid, d1, d2, 4096, n2, 8):.4f} ms")
@@ -654,14 +658,22 @@ def main() -> int:
     # (the summation order differs). Bound: the union of the windows read
     # once (overlapping windows share bytes), the origins (and the used
     # realignments) in, the (256, 8, 128) blocks out; one add per window
-    # element.
+    # element. Beside it the rate at which the windows themselves stream
+    # (2048 x 12,288 B over graph_ms; the image, 9.9 MB, stays in the 50 MB
+    # L2 across replays) and, for the staged kernel, the share of window
+    # pieces that arrived by TMA: the kernel's own count of the boxes whose
+    # barrier it waited on (acquire's tma_pieces) over the pieces
+    # acquire.window_boxes cuts (one a keypoint here, so it must be 1.0). Its
+    # single-call ms includes encoding the tensor map on the host.
     a_img, a_oy, a_ox, a_rxy = acquire.bench_inputs(2048, H, W, SEED)
     a_args = tuple(torch.as_tensor(a, device=dev) for a in (a_img, a_oy, a_ox, a_rxy))
     nkp = a_oy.shape[0]
     out_bytes = nkp // acquire.GROUP * 8 * 128 * 4
+    window_bytes = nkp * acquire.P * acquire.PW * 4
     for name, staged, roll in acquire.VARIANTS:
         kern = acquire.KERNELS[(staged, roll)]
-        got_p = acquire.acquire(*a_args, staged, roll)
+        tma = torch.zeros(1, dtype=torch.int32, device=dev) if staged else None
+        got_p = acquire.acquire(*a_args, staged, roll, tma)
         ref_p = acquire.acquire_plain(*a_args, roll)
         require(torch.allclose(got_p, ref_p, rtol=1e-5, atol=0.0),
                 f"P1 {name} differs: max rel err "
@@ -671,14 +683,26 @@ def main() -> int:
         covered[rows, cols] = True
         nbytes = 4 * int(covered.sum()) + 8 * nkp + (8 * nkp if roll else 0) + out_bytes
         ms = time_ms(acquire.acquire, *a_args, staged, roll)
+        graph_ms = time_ms_graph(acquire.acquire, *a_args, staged, roll)
         results[kern.name] = dict(
-            max_abs_err=float((got_p - ref_p).abs().max()), ms=ms,
-            graph_ms=time_ms_graph(acquire.acquire, *a_args, staged, roll),
+            max_abs_err=float((got_p - ref_p).abs().max()), ms=ms, graph_ms=graph_ms,
             plain_ms=time_ms(acquire.acquire_plain, *a_args, roll),
-            bound=bound(nbytes, nkp * acquire.P * acquire.PW), library_ms=None)
+            bound=bound(nbytes, nkp * acquire.P * acquire.PW), library_ms=None,
+            window_tb_s=window_bytes / (graph_ms * 1e-3) / 1e12)
+        if staged:
+            boxes = acquire.window_boxes(*a_args[1:], roll, *a_img.shape,
+                                         base_aligned=a_args[0].data_ptr() % 16 == 0)
+            pieces = sum(len(kp) for kp in boxes)
+            require(pieces == nkp, f"P1 {name}: {pieces} window pieces, expected one a keypoint")
+            share = int(tma) / pieces
+            require(share == 1.0, f"P1 {name}: the kernel counted {int(tma)} of {pieces} "
+                                  f"window pieces arriving by TMA")
+            results[kern.name]["tma_share"] = share
         log(f"P1 {name}: {nkp} keypoints, equal to plain at rtol 1e-5, {ms:.4f} ms "
-            f"({ms * 1e6 / nkp:.1f} ns per keypoint), bound {results[kern.name]['bound'][0]:.4f} ms "
-            f"({int(covered.sum())} distinct window pixels)")
+            f"({ms * 1e6 / nkp:.1f} ns per keypoint), graph-replayed {graph_ms:.5f} ms, windows "
+            f"at {results[kern.name]['window_tb_s']:.3f} TB/s, bound "
+            f"{results[kern.name]['bound'][0]:.4f} ms ({int(covered.sum())} distinct window "
+            f"pixels)" + (f", TMA share {share}" if staged else ""))
 
     # P2: each probe against its plain version on the card, and against
     # what the TPU probe asserts (probes.PROBES). Bound: inputs and output
@@ -690,6 +714,27 @@ def main() -> int:
         if p.kernel is probes.SMALL_DOT:
             return bound(nbytes, 2.0 * out.numel() * args[0].shape[1])
         return bound(nbytes, out.numel() if p.kernel is probes.SCALE_BY_SCALAR else 0)
+
+    # The kernels one call puts on the device when it is replayed from a
+    # CUDA graph, each with its device time (torch.profiler): what a
+    # library call's library_graph_ms is made of.
+    def replayed_kernels(fn, *args):
+        from torch.profiler import ProfilerActivity, profile
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn(*args)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn(*args)
+        graph.replay()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            graph.replay()
+            torch.cuda.synchronize()
+        return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
 
     probe_library = {
         probes.SCALE_BY_SCALAR: lambda s_, x: torch.mul(x, s_[2]),
@@ -707,12 +752,18 @@ def main() -> int:
         require(ok and perr <= tol, f"P2 {p.name}: check {ok} (error {err}), "
                                     f"against plain {perr} > {tol}")
         lib = probe_library.get(p.kernel)
-        results[p.kernel.name] = dict(
+        row = results[p.kernel.name] = dict(
             max_abs_err=perr, ms=time_ms(p.fn, *args), graph_ms=time_ms_graph(p.fn, *args),
             plain_ms=time_ms(p.plain, *args), bound=probe_bound(p, args, out),
             library_ms=None if lib is None else time_ms(lib, *args))
+        if lib is not None:
+            row["library_graph_ms"] = time_ms_graph(lib, *args)
+            row["library_graph_kernels"] = replayed_kernels(lib, *args)
+            log(f"P2 {p.name}: one library call replayed from a graph puts on the device "
+                + "; ".join(f"{k} {us:.2f} us" for k, us in row["library_graph_kernels"]))
         log(f"P2 {p.name} ({p.kernel.name}): check passed (error {err:.3g}), "
-            f"against plain {perr:.3g}")
+            f"against plain {perr:.3g}, graph-replayed {row['graph_ms']:.5f} ms"
+            + ("" if lib is None else f", library {row['library_graph_ms']:.5f} ms"))
 
     # The whole pipeline on a small input: CUDA kernels against the plain
     # versions on the CPU. Same point count, keypoint set overlap >= 0.97.

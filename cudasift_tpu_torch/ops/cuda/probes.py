@@ -94,7 +94,7 @@ def lane_lane_dot_plain(a, b):
 
 def lane_lane_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(16, k) bf16 . (n, k)^T bf16 -> (16, n) float32, accumulated in
-    float32 (on the tensor cores on the card)."""
+    float32 (on the tensor cores on the card, both bases on 4 bytes)."""
     if a.device.type == "cpu":
         return lane_lane_dot_plain(a, b)
     m, k = _2d(a, "a", torch.bfloat16)
@@ -102,6 +102,8 @@ def lane_lane_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if m != 16 or kb != k or n % 8 or k % 16:
         raise ValueError(f"needs a (16, k) and b (n, k), n % 8 == 0, k % 16 == 0; got "
                          f"{tuple(a.shape)}, {tuple(b.shape)}")
+    if (a.data_ptr() | b.data_ptr()) % 4:
+        raise ValueError("a and b must start on 4 bytes (the kernel reads bf16 pairs)")
     out = torch.empty((16, n), dtype=torch.float32, device=a.device)
     LANE_LANE_DOT(a.device, ptr(a), ptr(b), n, k, ptr(out))
     return out

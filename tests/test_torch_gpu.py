@@ -489,6 +489,96 @@ def test_acquire_kernels_match_plain(cuda):
             assert not got[:, 1:].any()
 
 
+def acquire_case(case, cuda):
+    """P1 inputs for each of the kernels' branches, on the card: the bench's
+    own (one TMA box a keypoint); origins from before the image to past it
+    with realignments over the whole patch (wrapped windows of up to four
+    pieces, pieces inside and outside the image); windows that each wrap
+    into four pieces inside the image, 32 TMA boxes a block with the rolls,
+    so the staged kernel refills its eight slots in four rounds; the random
+    case again on an image of odd width and on a view whose base is 4 bytes
+    past a 16-byte boundary (no TMA: every piece takes the clamped branch in
+    the staged kernel). Values in [0, 1), so the sums are far from 0 and
+    rtol is meaningful."""
+    if case == "bench":
+        img, oy, ox, rxy = acquire.bench_inputs(2048, 1080, 1920, seed=0)
+    elif case == "rounds":
+        h, w, n = 130, 420, 32
+        rng = np.random.default_rng(69)
+        img = rng.random((h, w), dtype=np.float32)
+        oy = rng.integers(0, h - acquire.PR + 1, n).astype(np.int32)
+        ox = rng.integers(0, w - acquire.PWR + 1, n).astype(np.int32)
+        rxy = np.concatenate([rng.integers(9, 56, n), rng.integers(193, 256, n)]).astype(np.int32)
+    else:
+        h, w = (97, 301) if case == "odd_width" else (130, 420)
+        rng = np.random.default_rng(67)
+        n = 256
+        img = rng.random((h, w), dtype=np.float32)
+        oy = rng.integers(-60, h + 8, n).astype(np.int32)
+        ox = rng.integers(-260, w + 8, n).astype(np.int32)
+        rxy = np.concatenate([rng.integers(0, 56, n), rng.integers(0, 256, n)]).astype(np.int32)
+    if case == "unaligned":
+        flat = torch.empty(img.size + 1, dtype=torch.float32, device=cuda)
+        img_t = flat[1:].view(img.shape)
+        img_t.copy_(torch.as_tensor(img))
+    else:
+        img_t = torch.as_tensor(img, device=cuda)
+    return (img_t,) + tuple(torch.as_tensor(a, device=cuda) for a in (oy, ox, rxy))
+
+
+@pytest.mark.parametrize("case", ["bench", "wrap_clamp", "rounds", "odd_width", "unaligned"])
+def test_acquire_kernels_match_plain_on_every_branch(cuda, case):
+    args = acquire_case(case, cuda)
+    h, w = args[0].shape
+    assert (args[0].data_ptr() % 16 != 0) == (case == "unaligned")
+    for name, staged, roll in acquire.VARIANTS:
+        boxes = acquire.window_boxes(*args[1:], roll, h, w,
+                                     base_aligned=args[0].data_ptr() % 16 == 0)
+        on_tma = [b.tma for kp in boxes for b in kp]
+        if case == "bench":
+            assert all(on_tma) and len(on_tma) == len(boxes)
+        elif case == "wrap_clamp":
+            assert any(on_tma) and not all(on_tma)
+            assert max(map(len, boxes)) == (4 if roll else 1)
+        elif case == "rounds":
+            assert all(on_tma) and len(on_tma) == len(boxes) * (4 if roll else 1)
+        else:
+            assert not any(on_tma)
+        kern = acquire.KERNELS[(staged, roll)]
+        before = kern.launches
+        tma = torch.zeros(1, dtype=torch.int32, device=cuda)
+        got = acquire.acquire(*args, staged=staged, roll=roll, tma_pieces=tma)
+        assert kern.launches == before + 1, name
+        # The kernel's own count of the boxes that arrived by TMA.
+        assert int(tma) == (sum(on_tma) if staged else 0), name
+        ref = acquire.acquire_plain(*args, roll)
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=0, msg=f"{case}, {name}")
+        assert not got[:, 1:].any()
+
+
+@pytest.mark.parametrize("case", ["wrap_clamp", "rounds"])
+def test_acquire_replays_in_a_graph(cuda, case):
+    """Each P1 launcher captured once (the staged one with its tensor map
+    by value) replays the eager call bit for bit, and again after the
+    image's contents change under the same address."""
+    args = acquire_case(case, cuda)
+    img = args[0]
+    for name, staged, roll in acquire.VARIANTS:
+        eager = acquire.acquire(*args, staged, roll)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = acquire.acquire(*args, staged, roll)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager), name
+        saved = img.clone()
+        img.mul_(0.5).add_(0.25)
+        graph.replay()
+        assert torch.equal(out, acquire.acquire(*args, staged, roll)), name
+        img.copy_(saved)
+
+
 def test_probe_kernels_pass_and_match_plain(cuda):
     for p in probes.PROBES:
         args = p.inputs(cuda)
@@ -499,6 +589,66 @@ def test_probe_kernels_pass_and_match_plain(cuda):
         assert ok, (p.name, err)
         torch.testing.assert_close(out, p.plain(*args), rtol=0, atol=1e-3, msg=p.name)
     assert all(ok for ok, _ in probes.run_probes(cuda).values())
+
+
+def test_redesigned_probes_off_the_probe_shapes(cuda):
+    """The four redesigned probes where their shapes leave the probe's:
+    word and element paths, clamped offsets, a k tail and several tiles and
+    k chunks, against their plain versions (0 apart, or 1e-3 for the two
+    products)."""
+    rng = np.random.default_rng(68)
+
+    def t(shape, dtype=torch.float32):
+        return torch.as_tensor(rng.standard_normal(shape), dtype=dtype, device=cuda)
+
+    for cols in (128, 37):
+        img = t((64, cols))
+        for off in (-3, 0, 29, 60, 70):
+            o = torch.tensor([off], dtype=torch.int32, device=cuda)
+            assert torch.equal(probes.slice_rows(img, o), probes.slice_rows_plain(img, o))
+        x = t((len(range(2, 50, 5)), cols))
+        assert torch.equal(probes.strided_rows(x, 50, 2, 5), probes.strided_rows_plain(x, 50, 2, 5))
+    for n, k in ((72, 272), (8, 16), (16, 512)):
+        a, b = t((16, k), torch.bfloat16), t((n, k), torch.bfloat16)
+        torch.testing.assert_close(probes.lane_lane_dot(a, b), probes.lane_lane_dot_plain(a, b),
+                                   rtol=0, atol=1e-3)
+    for m, k, n in ((20, 260, 36), (1, 4, 4), (33, 1024, 128), (4, 6, 5), (17, 301, 37)):
+        a, b = t((m, k)), t((k, n))
+        torch.testing.assert_close(probes.small_dot(a, b), probes.small_dot_plain(a, b),
+                                   rtol=0, atol=1e-3)
+
+
+def test_redesigned_probes_on_views_off_16_bytes(cuda):
+    """The four redesigned probes on views whose base lies 4, 8 or 12 bytes
+    past a 16-byte boundary: their address-aligned 16-byte loads take a
+    second word, the result is the plain version's. ``lane_lane_dot`` reads
+    bf16 pairs, so a base off 4 bytes is refused."""
+    rng = np.random.default_rng(70)
+
+    def view(shape, skip, dtype=torch.float32):
+        flat = torch.empty(int(np.prod(shape)) + skip, dtype=dtype, device=cuda)
+        v = flat[skip:].view(shape)
+        v.copy_(torch.as_tensor(rng.standard_normal(shape), dtype=dtype))
+        return v
+
+    for skip in (1, 2, 3):
+        for cols in (128, 37):
+            img = view((64, cols), skip)
+            assert img.data_ptr() % 16 == 4 * skip
+            o = torch.tensor([5], dtype=torch.int32, device=cuda)
+            assert torch.equal(probes.slice_rows(img, o), probes.slice_rows_plain(img, o))
+            x = view((16, cols), skip)
+            assert torch.equal(probes.strided_rows(x, 128, 3, 8),
+                               probes.strided_rows_plain(x, 128, 3, 8))
+        a, b = view((16, 256), skip), view((256, 128), skip)
+        torch.testing.assert_close(probes.small_dot(a, b), probes.small_dot_plain(a, b),
+                                   rtol=0, atol=1e-3)
+    for skip in (2, 4, 6):
+        a, b = view((16, 256), skip, torch.bfloat16), view((16, 256), 8 - skip, torch.bfloat16)
+        torch.testing.assert_close(probes.lane_lane_dot(a, b), probes.lane_lane_dot_plain(a, b),
+                                   rtol=0, atol=1e-3)
+    with pytest.raises(ValueError):
+        probes.lane_lane_dot(view((16, 256), 1, torch.bfloat16), view((16, 256), 0, torch.bfloat16))
 
 
 def test_fast_pipeline_on_card_matches_cpu(cuda):

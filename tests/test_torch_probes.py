@@ -101,3 +101,65 @@ def test_probes_assert_what_the_tpu_probes_assert():
     results = probes.run_probes("cpu")
     assert set(results) == {p.name for p in probes.PROBES}
     assert all(ok for ok, _ in results.values()), results
+
+
+@pytest.mark.parametrize("k", [256, 272, 528])
+def test_lane_lane_dot_fragment_slots_pair_equal_k(k):
+    """``lane_lane_dot`` in csrc/probes.cu fills lane (g, q)'s m16n8k16 slots
+    2q, 2q + 1, 2q + 8, 2q + 9 of rows g, g + 8 of a and of row g of b's
+    n-tile from 16-byte words: elements 8q .. 8q + 3 of each 32-wide chunk of
+    k for one mma step, 8q + 4 .. 8q + 7 for the next, and 4q .. 4q + 3 of a
+    16-wide tail. Chunk ch goes to warp ch % 8 of the n-tile's block, the
+    tail to warp (k // 32) % 8, and the warps' partial tiles are summed in
+    warp order. Emulated here step by step, the result is a . b^T: every k
+    is paired with itself once, by one warp."""
+    rng = np.random.default_rng(k)
+    n, warps = 16, 8
+    a = rng.standard_normal((16, k))
+    b = rng.standard_normal((n, k))
+    chunks = k // 32
+    steps = [(ch % warps, lambda q, e, c0=ch * 32, half=half: c0 + 8 * q + 4 * half + e)
+             for ch in range(chunks) for half in (0, 1)]
+    if k % 32:
+        steps.append((chunks % warps, lambda q, e: k - 16 + 4 * q + e))
+    out = np.zeros((16, n))
+    for nt in range(n // 8):
+        part = np.zeros((warps, 16, 8))
+        for warp, phys in steps:
+            frag_a, frag_b = np.zeros((16, 16)), np.zeros((16, 8))
+            for g in range(8):
+                for q in range(4):
+                    for e, slot in enumerate((2 * q, 2 * q + 1, 2 * q + 8, 2 * q + 9)):
+                        frag_a[g, slot] = a[g, phys(q, e)]
+                        frag_a[g + 8, slot] = a[g + 8, phys(q, e)]
+                        frag_b[slot, g] = b[nt * 8 + g, phys(q, e)]
+            part[warp] += frag_a @ frag_b
+        out[:, nt * 8:nt * 8 + 8] = part.sum(axis=0)
+    np.testing.assert_allclose(out, a @ b.T, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("phase", [0, 1, 2, 3])
+def test_ld_words_reads_any_base_in_aligned_words(phase):
+    """``ld_words`` in csrc/probes.cu: the words p[0] .. p[valid - 1] of an
+    array on 4 bytes. It loads the aligned 16-byte word that holds p[0]
+    when valid > 0 and the next one when phase + valid passes 4, then takes
+    words phase .. phase + 3 of the pair by a shift of two words (phase &
+    2) and one of one word (phase & 1); lanes at or past valid are 0.
+    Emulated here on a memory of 32-bit words: every base and count reads
+    exactly the words asked for, and no word past the one holding the last."""
+    mem = np.arange(1, 65, dtype=np.uint32)           # word 0 starts on 16 bytes
+    for start in range(phase, 48, 4):
+        for valid in (0, 1, 2, 3, 4):
+            w = start & ~3
+            loads = [w] * (valid > 0) + [w + 4] * (phase + valid > 4)
+            lo = mem[w:w + 4] if valid > 0 else np.zeros(4, np.uint32)
+            hi = mem[w + 4:w + 8] if phase + valid > 4 else np.zeros(4, np.uint32)
+            two, one = phase & 2, phase & 1
+            s = [lo[2] if two else lo[0], lo[3] if two else lo[1], hi[0] if two else lo[2],
+                 hi[1] if two else lo[3], hi[2] if two else hi[0]]
+            lanes = [int(s[i + 1] if one else s[i]) if i < valid else 0 for i in range(4)]
+            assert lanes == list(mem[start:start + valid]) + [0] * (4 - valid)
+            if valid:
+                assert max(loads) <= start + valid - 1 < max(loads) + 4
+            else:
+                assert not loads
