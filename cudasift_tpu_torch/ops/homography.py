@@ -18,6 +18,12 @@ thresholds are copied in. RANSAC's uniform draws are made outside the
 program, from the caller's generator, and copied in too, so a replay takes
 fresh draws and a call gives the same numbers replayed or eager. Nothing
 inside reads a tensor on the host or copies host data to the card.
+
+With ``utils.trace`` on, RANSAC's body marks three stages: ``ransac.sample``
+(the good set, quads, normalisation, DLT and denormalisation),
+``ransac.score`` (every hypothesis scored) and ``ransac.refit`` (the winner,
+the four LO passes, the rescore and the final select); the draws are the
+host span ``ransac.draws``.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import torch
 from ..config import HomographyParams
 from ..sift_data import SiftData
 from .detect import rank_select
+from ..utils import trace
 from ..utils.jit import cuda_graph_jit
 from .linalg import solve_batched, weighted_lstsq8
 
@@ -157,9 +164,11 @@ def find_homography(
     min_score = p.min_score if min_score is None else min_score
     max_ambiguity = p.max_ambiguity if max_ambiguity is None else max_ambiguity
     thresh = p.thresh if thresh is None else thresh
-    u = _uniform_draws(generator, int(num_loops), data.device)
-    return _find_homography_jit(_pairs(data), u,
-                                _gates(min_score, max_ambiguity, thresh, data.device))
+    with trace.span("find_homography"):
+        with trace.span("ransac.draws"):
+            u = _uniform_draws(generator, int(num_loops), data.device)
+        return _find_homography_jit(_pairs(data), u,
+                                    _gates(min_score, max_ambiguity, thresh, data.device))
 
 
 def _pairs(data: SiftData) -> tuple:
@@ -184,63 +193,66 @@ def _find_homography_jit(pairs: tuple, u: torch.Tensor, gates: tuple):
     x1, y1, x2, y2, score, ambiguity, num_pts = pairs
     min_score, max_ambiguity, thresh = gates
     dev, max_pts = x1.device, x1.shape[0]
-    valid_pts = torch.arange(max_pts, device=dev) < num_pts
-    good = valid_pts & (score > min_score) & (ambiguity < max_ambiguity)
-    good_idx, num_good, _ = rank_select(good, max_pts)
+    with trace.stage("ransac.sample", dev):
+        valid_pts = torch.arange(max_pts, device=dev) < num_pts
+        good = valid_pts & (score > min_score) & (ambiguity < max_ambiguity)
+        good_idx, num_good, _ = rank_select(good, max_pts)
 
-    quads = _distinct_quads(u, num_good)                  # (L, 4)
-    pick = good_idx[quads]
+        quads = _distinct_quads(u, num_good)                  # (L, 4)
+        pick = good_idx[quads]
 
-    cx1, cy1, s1 = _normalization(x1, y1, good)
-    cx2, cy2, s2 = _normalization(x2, y2, good)
-    src = torch.stack([s1 * (x1[pick] - cx1), s1 * (y1[pick] - cy1)], dim=-1)
-    dst = torch.stack([s2 * (x2[pick] - cx2), s2 * (y2[pick] - cy2)], dim=-1)
-    hn8 = _dlt_batch(src, dst)
-    hn8 = torch.where(torch.isfinite(hn8), hn8, 0.0)
-    t1 = _similarity(s1, cx1, cy1)
-    t2inv = _similarity(s2, cx2, cy2, inverse=True)
-    h8 = _denormalize(hn8, t2inv, t1).reshape(-1, 9)[:, :8]
-    h8 = torch.where(torch.isfinite(h8), h8, 0.0)
+        cx1, cy1, s1 = _normalization(x1, y1, good)
+        cx2, cy2, s2 = _normalization(x2, y2, good)
+        src = torch.stack([s1 * (x1[pick] - cx1), s1 * (y1[pick] - cy1)], dim=-1)
+        dst = torch.stack([s2 * (x2[pick] - cx2), s2 * (y2[pick] - cy2)], dim=-1)
+        hn8 = _dlt_batch(src, dst)
+        hn8 = torch.where(torch.isfinite(hn8), hn8, 0.0)
+        t1 = _similarity(s1, cx1, cy1)
+        t2inv = _similarity(s2, cx2, cy2, inverse=True)
+        h8 = _denormalize(hn8, t2inv, t1).reshape(-1, 9)[:, :8]
+        h8 = torch.where(torch.isfinite(h8), h8, 0.0)
 
-    counts, msac = _inlier_counts(h8, x1[None, :], y1[None, :], x2[None, :],
-                                  y2[None, :], valid_pts, thresh)
-    # The winner by index_select: indexing with a 0-d tensor would read it
-    # on the host.
-    best = torch.argmin(msac).reshape(1)
-    best_h8 = h8.index_select(0, best)[0]
-    num_matches = counts.index_select(0, best)[0]
+    with trace.stage("ransac.score", dev):
+        counts, msac = _inlier_counts(h8, x1[None, :], y1[None, :], x2[None, :],
+                                      y2[None, :], valid_pts, thresh)
+    with trace.stage("ransac.refit", dev):
+        # The winner by index_select: indexing with a 0-d tensor would read it
+        # on the host.
+        best = torch.argmin(msac).reshape(1)
+        best_h8 = h8.index_select(0, best)[0]
+        num_matches = counts.index_select(0, best)[0]
 
-    # LO-RANSAC: refit the winner on all valid matches within `thresh` of
-    # it, four times (documented deviation from the raw 4-point winner the
-    # reference returns, ROADMAP.md).
-    ya, yb = _dlt_rows(s1 * (x1 - cx1), s1 * (y1 - cy1),
-                       s2 * (x2 - cx2), s2 * (y2 - cy2))
-    refit = best_h8
-    for _ in range(4):
-        h = torch.cat([refit, torch.ones_like(refit[:1])]).reshape(3, 3)
-        den = h[2, 0] * x1 + h[2, 1] * y1 + 1.0
-        den = torch.where(den.abs() < 1e-12, 1e-12, den)
-        px = (h[0, 0] * x1 + h[0, 1] * y1 + h[0, 2]) / den
-        py = (h[1, 0] * x1 + h[1, 1] * y1 + h[1, 2]) / den
-        err2 = (px - x2) ** 2 + (py - y2) ** 2
-        w = (valid_pts & (err2 < thresh * thresh)).to(torch.float32)
-        a, ok = weighted_lstsq8(ya, yb, w[None], s2 * (x2 - cx2), s2 * (y2 - cy2))
-        hr8 = _denormalize(a, t2inv, t1).reshape(9)[:8]
-        ok = ok[0] & torch.isfinite(hr8).all()
-        refit = torch.where(ok, hr8, refit)
-    refit_counts, refit_msac = _inlier_counts(
-        refit[None], x1[None, :], y1[None, :], x2[None, :], y2[None, :],
-        valid_pts, thresh)
-    better = refit_msac[0] <= msac.index_select(0, best)[0]
-    best_h8 = torch.where(better, refit, best_h8)
-    num_matches = torch.where(better, refit_counts[0], num_matches)
+        # LO-RANSAC: refit the winner on all valid matches within `thresh` of
+        # it, four times (documented deviation from the raw 4-point winner the
+        # reference returns, ROADMAP.md).
+        ya, yb = _dlt_rows(s1 * (x1 - cx1), s1 * (y1 - cy1),
+                           s2 * (x2 - cx2), s2 * (y2 - cy2))
+        refit = best_h8
+        for _ in range(4):
+            h = torch.cat([refit, torch.ones_like(refit[:1])]).reshape(3, 3)
+            den = h[2, 0] * x1 + h[2, 1] * y1 + 1.0
+            den = torch.where(den.abs() < 1e-12, 1e-12, den)
+            px = (h[0, 0] * x1 + h[0, 1] * y1 + h[0, 2]) / den
+            py = (h[1, 0] * x1 + h[1, 1] * y1 + h[1, 2]) / den
+            err2 = (px - x2) ** 2 + (py - y2) ** 2
+            w = (valid_pts & (err2 < thresh * thresh)).to(torch.float32)
+            a, ok = weighted_lstsq8(ya, yb, w[None], s2 * (x2 - cx2), s2 * (y2 - cy2))
+            hr8 = _denormalize(a, t2inv, t1).reshape(9)[:8]
+            ok = ok[0] & torch.isfinite(hr8).all()
+            refit = torch.where(ok, hr8, refit)
+        refit_counts, refit_msac = _inlier_counts(
+            refit[None], x1[None, :], y1[None, :], x2[None, :], y2[None, :],
+            valid_pts, thresh)
+        better = refit_msac[0] <= msac.index_select(0, best)[0]
+        best_h8 = torch.where(better, refit, best_h8)
+        num_matches = torch.where(better, refit_counts[0], num_matches)
 
-    enough = num_good >= 8
-    identity = torch.eye(3, dtype=torch.float32, device=dev).reshape(9)[:8]
-    best_h8 = torch.where(enough, best_h8, identity)
-    num_matches = torch.where(enough, num_matches, 0).to(torch.int32)
-    homography = torch.cat([best_h8, torch.ones_like(best_h8[:1])]).reshape(3, 3)
-    return homography, num_matches
+        enough = num_good >= 8
+        identity = torch.eye(3, dtype=torch.float32, device=dev).reshape(9)[:8]
+        best_h8 = torch.where(enough, best_h8, identity)
+        num_matches = torch.where(enough, num_matches, 0).to(torch.int32)
+        homography = torch.cat([best_h8, torch.ones_like(best_h8[:1])]).reshape(3, 3)
+        return homography, num_matches
 
 
 def improve_homography(
@@ -262,8 +274,9 @@ def improve_homography(
 
     Returns (homography (3, 3), num_fit (), match_error (max_pts,)).
     """
-    return _improve_homography_jit(_pairs(data), homography, int(num_loops),
-                                   _gates(min_score, max_ambiguity, thresh, data.device))
+    with trace.span("improve_homography"):
+        return _improve_homography_jit(_pairs(data), homography, int(num_loops),
+                                       _gates(min_score, max_ambiguity, thresh, data.device))
 
 
 @cuda_graph_jit

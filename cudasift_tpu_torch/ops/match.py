@@ -21,6 +21,7 @@ import torch
 
 from ..config import MatchParams
 from ..sift_data import SiftData
+from ..utils import trace
 
 
 def match_top2(d1: torch.Tensor, d2: torch.Tensor, n1, n2,
@@ -186,25 +187,26 @@ def match_sift_data(data1: SiftData, data2: SiftData, tile: int | None = None,
     five elementwise operations leave a graph no dispatch to save, and a
     replay would first copy both descriptor sets in.
     """
-    from .cuda.match import match_descriptors as match_kernel
+    with trace.span("match_sift_data"):
+        from .cuda.match import match_descriptors as match_kernel
 
-    p = params if params is not None else MatchParams()
-    tile = p.tile_n2 if tile is None else tile
-    use_bf16 = p.use_bf16 if use_bf16 is None else use_bf16
-    if data1.device.type == "cuda" and not use_pallas:
-        raise NotImplementedError(
-            "use_pallas=False on CUDA: the port has no non-kernel GPU matcher")
-    best, ambiguity, index = match_kernel(
-        data1.data, data2.data, data1.num_pts, data2.num_pts,
-        use_bf16=use_bf16, tile=tile)
-    valid = data1.valid_mask()
-    z = torch.zeros((), dtype=torch.float32, device=data1.device)
-    idx = index.to(torch.int64)
-    return dataclasses.replace(
-        data1,
-        score=torch.where(valid, best, z),
-        ambiguity=torch.where(valid, ambiguity, z),
-        match=torch.where(valid, index, -1).to(torch.int32),
-        match_xpos=torch.where(valid, data2.xpos[idx], z),
-        match_ypos=torch.where(valid, data2.ypos[idx], z),
-    )
+        p = params if params is not None else MatchParams()
+        tile = p.tile_n2 if tile is None else tile
+        use_bf16 = p.use_bf16 if use_bf16 is None else use_bf16
+        if data1.device.type == "cuda" and not use_pallas:
+            raise NotImplementedError(
+                "use_pallas=False on CUDA: the port has no non-kernel GPU matcher")
+        best, ambiguity, index = match_kernel(
+            data1.data, data2.data, data1.num_pts, data2.num_pts,
+            use_bf16=use_bf16, tile=tile)
+        valid = data1.valid_mask()
+        z = torch.zeros((), dtype=torch.float32, device=data1.device)
+        idx = index.to(torch.int64)
+        return dataclasses.replace(
+            data1,
+            score=torch.where(valid, best, z),
+            ambiguity=torch.where(valid, ambiguity, z),
+            match=torch.where(valid, index, -1).to(torch.int32),
+            match_xpos=torch.where(valid, data2.xpos[idx], z),
+            match_ypos=torch.where(valid, data2.ypos[idx], z),
+        )

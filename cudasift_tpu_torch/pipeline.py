@@ -28,6 +28,15 @@ params, device) (``utils.jit.cuda_graph_jit``, in the role of the JAX
 package's ``tpu_jit`` programs); inside ``utils.jit.disable_graphs()`` they
 dispatch every operation from the host instead.
 
+With ``utils.trace`` on, the body marks its stages: ``extract.pyramid``
+(the blurred base, its octaves and the zero overflow count), per octave
+``extract.octave`` around ``extract.dog`` (K1), ``extract.compact``
+(compaction and its dropped count), ``extract.refine`` (K2) and ``extract.describe`` (K3; on the
+split path K6 and K7, each an interval of that name), then
+``extract.merge`` (the cross-octave merge and the ``SiftData``). An
+octave's self time is its glue: the fields, the scaling, the split path's
+compactions and the overflow sum.
+
 Point order matches the reference's octave recursion (cudaSiftH.cu:146-167):
 octaves smallest first, within an octave primary orientations before
 second-peak duplicates, each block in raster order. ``num_pts`` counts
@@ -47,6 +56,7 @@ from .ops.cuda.orient_desc import MODES, orient_and_describe
 from .ops.cuda.refine import refine_candidates
 from .ops.detect import compact_mask, rank_select
 from .sift_data import SiftData, resolve_device
+from .utils import trace
 from .utils.jit import cuda_graph_jit
 
 
@@ -79,14 +89,18 @@ def _extract_octave(base: torch.Tensor, kernels: np.ndarray, params: SiftParams,
     """One octave (ExtractSiftOctave, cudaSiftH.cu:169-232). Returns
     (fields, slot validity, dropped candidates) with positions in image
     units (cudaSiftD.cu:410-414)."""
-    dog, mask = dog_and_mask(base, kernels, params.thresh, params.edge_limit)
-    if params.use_pallas_compact:
-        flat_idx, count, total = cuda.compact.compact_mask(mask, capacity)
-    else:
-        flat_idx, count, total = compact_mask(mask, capacity, with_total=True)
-    oct_overflow = total - count
-    cands = refine_candidates(dog, flat_idx, count, params.edge_limit,
-                              params.lowest_scale_effective / subsampling)
+    dev = base.device
+    with trace.stage("extract.dog", dev):
+        dog, mask = dog_and_mask(base, kernels, params.thresh, params.edge_limit)
+    with trace.stage("extract.compact", dev):
+        if params.use_pallas_compact:
+            flat_idx, count, total = cuda.compact.compact_mask(mask, capacity)
+        else:
+            flat_idx, count, total = compact_mask(mask, capacity, with_total=True)
+        oct_overflow = total - count
+    with trace.stage("extract.refine", dev):
+        cands = refine_candidates(dog, flat_idx, count, params.edge_limit,
+                                  params.lowest_scale_effective / subsampling)
     if params.use_fused:
         mode = "fast" if params.fast_gradients else params.grad_mode
         fields, slot_valid = _fused_orient_describe(base, cands, mode)
@@ -111,8 +125,9 @@ def _fused_orient_describe(base: torch.Tensor, cands, grad_mode: str):
     over ``2 * capacity`` slots: primaries then second-peak duplicates, each
     in raster order, with dead slots between live ones."""
     scale_safe = torch.where(cands.valid, cands.scale, 1.0)
-    desc1, desc2, primary, secondary, has_second = orient_and_describe(
-        base, cands.xpos, cands.ypos, scale_safe, cands.valid, grad_mode)
+    with trace.stage("extract.describe", base.device):
+        desc1, desc2, primary, secondary, has_second = orient_and_describe(
+            base, cands.xpos, cands.ypos, scale_safe, cands.valid, grad_mode)
     fields = {k: _dup(getattr(cands, k))
               for k in ("xpos", "ypos", "scale", "sharpness", "edgeness")}
     fields["orientation"] = _dup(primary, secondary)
@@ -131,8 +146,9 @@ def _split_orient_describe(base: torch.Tensor, cands, capacity: int):
         cands.valid, capacity)
     live = torch.arange(capacity, device=base.device) < live_count
     scale_safe = torch.where(live, f0["scale"], 1.0)
-    _, primary, secondary, has_second = cuda.orient.orientation_peaks(
-        base, f0["xpos"], f0["ypos"], scale_safe, live_count)
+    with trace.stage("extract.describe", base.device):
+        _, primary, secondary, has_second = cuda.orient.orientation_peaks(
+            base, f0["xpos"], f0["ypos"], scale_safe, live_count)
     fields = {k: _dup(v) for k, v in f0.items()}
     fields["orientation"] = _dup(primary, secondary)
     valid = torch.cat([live, live & has_second])
@@ -141,35 +157,45 @@ def _split_orient_describe(base: torch.Tensor, cands, capacity: int):
     desc_cap = 2 * capacity
     fields, count, _ = _compact(fields, valid, desc_cap)
     slot_valid = torch.arange(desc_cap, device=base.device) < count
-    fields["data"] = cuda.descriptor.extract_descriptors(
-        base, fields["xpos"], fields["ypos"], torch.where(slot_valid, fields["scale"], 1.0),
-        fields["orientation"], count)
+    desc_scale = torch.where(slot_valid, fields["scale"], 1.0)
+    with trace.stage("extract.describe", base.device):
+        fields["data"] = cuda.descriptor.extract_descriptors(
+            base, fields["xpos"], fields["ypos"], desc_scale, fields["orientation"], count)
     return fields, slot_valid
 
 
 def _extract(image: torch.Tensor, params: SiftParams) -> SiftData:
     dev = image.device
-    img = image.to(torch.float32)
-    if params.scale_up:
-        img = convolve.scale_up(img)
-    low = convolve.low_pass(img, max(params.init_blur, 0.001))
+    with trace.stage("extract.pyramid", dev):
+        img = image.to(torch.float32)
+        if params.scale_up:
+            img = convolve.scale_up(img)
+        low = convolve.low_pass(img, max(params.init_blur, 0.001))
 
-    kernels = params.laplace_kernels
-    bases = [low]
-    for _ in range(params.num_octaves - 1):
-        bases.append(convolve.scale_down(bases[-1]))
+        kernels = params.laplace_kernels
+        bases = [low]
+        for _ in range(params.num_octaves - 1):
+            bases.append(convolve.scale_down(bases[-1]))
+        overflow = torch.zeros((), dtype=torch.int32, device=dev)
 
     all_fields, all_valid = [], []
-    overflow = torch.zeros((), dtype=torch.int32, device=dev)
     for o in reversed(range(params.num_octaves)):
-        oh, ow = bases[o].shape
-        cap = params.candidate_capacity(oh, ow, o)
-        fields, valid, oct_overflow = _extract_octave(
-            bases[o].contiguous(), kernels[o], params, float(2 ** o), cap)
-        all_fields.append(fields)
-        all_valid.append(valid)
-        overflow = overflow + oct_overflow
+        with trace.stage("extract.octave", dev):
+            oh, ow = bases[o].shape
+            cap = params.candidate_capacity(oh, ow, o)
+            fields, valid, oct_overflow = _extract_octave(
+                bases[o].contiguous(), kernels[o], params, float(2 ** o), cap)
+            all_fields.append(fields)
+            all_valid.append(valid)
+            overflow = overflow + oct_overflow
+    with trace.stage("extract.merge", dev):
+        return _merge(all_fields, all_valid, overflow, params, dev)
 
+
+def _merge(all_fields: list, all_valid: list, overflow: torch.Tensor, params: SiftParams,
+           dev: torch.device) -> SiftData:
+    """The octaves' slots merged into ``max_pts`` by one stable compaction,
+    as a ``SiftData``."""
     merged = {k: torch.cat([f[k] for f in all_fields]) for k in all_fields[0]}
     valid = torch.cat(all_valid)
     merged, num_pts, total = _compact(merged, valid, params.max_pts)
@@ -245,9 +271,10 @@ def extract_sift(image, params: SiftParams = SiftParams(),
     versions). On the card a call replays one captured program per (shape,
     params, device); the first call for such a key runs eagerly and captures.
     """
-    img = _as_frames(image, device, 2)
-    _check_params(params, img.device)
-    return _extract_sift_jit(img, params)
+    with trace.span("extract_sift"):
+        img = _as_frames(image, device, 2)
+        _check_params(params, img.device)
+        return _extract_sift_jit(img, params)
 
 
 def extract_sift_throughput(images, params: SiftParams = SiftParams(),
@@ -256,6 +283,7 @@ def extract_sift_throughput(images, params: SiftParams = SiftParams(),
     one captured graph per (N, shape, params, device) that runs the frames one
     after another); fields carry a leading (N,) batch axis (``num_pts`` has
     shape (N,)). Devices as in ``extract_sift``."""
-    frames = _as_frames(images, device, 3)
-    _check_params(params, frames.device)
-    return _extract_batch_jit(frames, params)
+    with trace.span("extract_sift_throughput"):
+        frames = _as_frames(images, device, 3)
+        _check_params(params, frames.device)
+        return _extract_batch_jit(frames, params)

@@ -32,7 +32,15 @@ taken apart (``tensors``); one that holds none is a static:
   the device the caller asked for;
 - a capture that fails raises; nothing carries on eagerly in its place;
 - inside ``disable_graphs()`` (the role of ``jax.disable_jit()``) and while
-  an outer capture is under way, wrapped functions run their bodies.
+  an outer capture is under way, wrapped functions run their bodies;
+- whether ``utils.trace`` is on is part of the key: a program captured with
+  tracing on carries its stage markers and times its calls, and the one
+  captured with tracing off is left as it is.
+
+Each wrapped function counts its ``captures``, ``replays`` and
+``evictions`` (a program dropped for ``MAX_PROGRAMS``; a recapture after one
+costs what the first call cost), and each program the nodes of its graph by
+type, read at capture; ``utils.trace.snapshot()`` reads them.
 
 Each program holds a private memory pool (at 1920 x 1080 an octave-0 DoG
 stack alone is 58 MB), so a wrapped function keeps its ``MAX_PROGRAMS`` most
@@ -48,9 +56,11 @@ import collections
 import contextlib
 import dataclasses
 import functools
+import weakref
 
 import torch
 
+from . import trace
 from .build import add_launches, launch_counts
 
 MAX_PROGRAMS = 8
@@ -127,58 +137,106 @@ def _graph_device(args) -> torch.device | None:
 class Program:
     """One captured call of ``fn``: static input buffers, the graph, its
     outputs (in the graph's private pool), the launches that each kernel
-    launcher counted during the capture, and the event that marks the end
-    of its last use of the buffers and the pool."""
+    launcher counted during the capture, the event that marks the end of its
+    last use of the buffers and the pool, its graph's nodes by type (None
+    without a card) and its replays. With ``traced``, its
+    ``utils.trace.ProgramTrace`` and a ``twin``: a second graph of the body
+    (the static buffers and the pool shared, its own outputs), which every
+    other call replays, so that a call's markers are read while the next
+    call runs."""
 
-    def __init__(self, fn, args, device: torch.device):
+    def __init__(self, fn, args, device: torch.device, traced: bool = False):
         self.device = device
         self.static = map_tensors(torch.clone, args)
-        self.graph = torch.cuda.CUDAGraph()
+        self.trace = trace.ProgramTrace(fn.__name__) if traced else None
+        self.replays = 0
         before = launch_counts()
         with torch.cuda.device(device):
-            # A side stream of the tensors' device, not the one torch.cuda.graph
-            # would make once on whatever device was current first.
-            with torch.cuda.graph(self.graph, stream=torch.cuda.Stream(device)):
-                self.outputs = fn(*self.static)
-        self.launches = {k: n - before.get(k, 0) for k, n in launch_counts().items()
-                         if n != before.get(k, 0)}
-        # The capture ran nothing on the device.
-        add_launches({k: -n for k, n in self.launches.items()})
+            self.graph, self.outputs, self.nodes = self._capture(
+                fn, self.trace.marks[0] if traced else None)
+            self.launches = {k: n - before.get(k, 0) for k, n in launch_counts().items()
+                             if n != before.get(k, 0)}
+            self.twin = self._capture(fn, self.trace.marks[1], self.graph.pool())[:2] \
+                if traced else None
         with torch.cuda.device(device):
             self.done = torch.cuda.Event()
             self.done.record()               # behind the static copies
+        # The captures ran nothing on the device.
+        captures = 2 if traced else 1
+        add_launches({k: -n * captures for k, n in self.launches.items()})
+
+    def _capture(self, fn, marks, pool=None):
+        """(graph, outputs, nodes by type) of one capture of ``fn`` on the
+        static buffers, its stages into ``marks``. The stamp kernels of the
+        stages count as ``stamp``, not as ``kernel``: a traced program holds
+        the kernels the program does."""
+        graph = torch.cuda.CUDAGraph()
+        # A side stream of the tensors' device, not the one torch.cuda.graph
+        # would make once on whatever device was current first.
+        with torch.cuda.graph(graph, pool=pool, stream=torch.cuda.Stream(self.device)):
+            with trace.capturing(marks):
+                outputs = fn(*self.static)
+            nodes = trace.capture_nodes()
+        if nodes is not None and marks is not None and marks.points:
+            nodes["kernel"] -= len(marks.points)
+            nodes["stamp"] = len(marks.points)
+        return graph, outputs, nodes
 
     def __call__(self, args):
+        t = self.trace
         with torch.cuda.device(self.device):
             # Behind the previous call, which may have been on another stream.
             self.done.wait()
-            for buf, a in zip(tensors(self.static), tensors(args)):
-                buf.copy_(a)
-            self.graph.replay()
-            out = map_tensors(torch.clone, self.outputs)
+            graph, outputs = self.graph, self.outputs
+            if t is not None and t.begin(torch.cuda.current_stream(self.device)):
+                graph, outputs = self.twin
+            with trace.span("jit.copy_in"):
+                for buf, a in zip(tensors(self.static), tensors(args)):
+                    buf.copy_(a)
+            if t is not None:
+                t.mark(1)
+            with trace.span("jit.replay"):
+                graph.replay()
+            if t is not None:
+                t.mark(2)
+            with trace.span("jit.clone"):
+                out = map_tensors(torch.clone, outputs)
+            if t is not None:
+                t.mark(3)
             self.done.record()
+            if t is not None:
+                t.end()
+        self.replays += 1
         add_launches(self.launches)
         return out
 
     def finish(self) -> None:
-        """Wait on the host for the last call, before the program is dropped."""
+        """Wait on the host for the last call, before the program is dropped
+        (a traced program reads its calls first)."""
         self.done.synchronize()
+        if self.trace is not None:
+            self.trace.flush()
 
 
 class GraphJit:
     """A function replayed from one CUDA graph per key; see the module."""
 
+    instances: "weakref.WeakSet[GraphJit]" = weakref.WeakSet()   # for utils.trace
+
     def __init__(self, fn):
         self.fn = fn
         self.programs: collections.OrderedDict = collections.OrderedDict()
+        self.captures = self.replays = self.evictions = 0
         functools.update_wrapper(self, fn)
+        GraphJit.instances.add(self)
 
     @staticmethod
     def key(args, device: torch.device) -> tuple:
         """(device index, per argument its signature: a tensor's (shape,
         dtype), a structure's type and its parts' signatures, or the
-        static)."""
-        return (device.index,) + tuple(_signature(a) for a in args)
+        static), and last ``"traced"`` while ``utils.trace`` is on."""
+        key = (device.index,) + tuple(_signature(a) for a in args)
+        return key + ("traced",) if trace.enabled() else key
 
     def __call__(self, *args):
         device = _graph_device(args)
@@ -187,12 +245,16 @@ class GraphJit:
         key = self.key(args, device)
         program = self.programs.get(key)
         if program is None:
-            out = self.fn(*args)
-            self.programs[key] = Program(self.fn, args, device)
+            with trace.span("jit.capture"):
+                out = self.fn(*args)
+                self.programs[key] = Program(self.fn, args, device, trace.enabled())
+            self.captures += 1
             while len(self.programs) > MAX_PROGRAMS:
                 self.programs.popitem(last=False)[1].finish()
+                self.evictions += 1
             return out
         self.programs.move_to_end(key)
+        self.replays += 1
         return program(args)
 
     def clear_cache(self) -> None:

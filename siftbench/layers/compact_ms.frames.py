@@ -1,0 +1,14 @@
+"""Device time a frame of the extraction program's ``extract.compact``
+stages (each octave's mask compaction), summed over the octaves, from the
+program's own stage markers over every request of the window."""
+
+from siftbench import programtrace
+
+NAME = "compact_ms.frames"
+UNIT = "ms"
+LAYER = "plain PyTorch stages (ops/convolve.py, ops/detect.py, pipeline.py)"
+SOURCE = "program_span"
+
+
+def read(reading):
+    return programtrace.stage_ms(reading, "extract.compact", "extract.pyramid")

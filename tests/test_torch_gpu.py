@@ -2,7 +2,7 @@
 kernels P1 and the probes P2) against their plain versions on the card, the
 pipeline, fused and split, on the card against the CPU, the entry points'
 captured programs (extraction, RANSAC, IRLS) against their eager
-runs, the sharded matcher and extraction and the dry run of
+runs, ``utils.trace`` on a replayed program and on the profiler's clock, the sharded matcher and extraction and the dry run of
 ``cudasift_tpu_torch.parallel`` on a mesh that repeats the card, and the
 demo CLI on the card. Marked ``gpu``: they skip without a CUDA device. On the card run
 them with ``python -m pytest tests/test_torch_gpu.py -q --noconftest``: the
@@ -24,7 +24,7 @@ from cudasift_tpu_torch.ops.cuda import (FUSED_PATH, acquire, compact, descripto
                                          orient, orient_desc, probes, refine)
 from cudasift_tpu_torch import pipeline
 from cudasift_tpu_torch.ops.cuda import LIBRARY
-from cudasift_tpu_torch.utils import io, jit, synth
+from cudasift_tpu_torch.utils import io, jit, synth, trace
 from cudasift_tpu_torch.utils.synth import make_test_image
 
 pytestmark = pytest.mark.gpu
@@ -964,3 +964,83 @@ def test_dryrun_on_the_card(cuda):
 
     out = dryrun_multichip(4)
     assert len(out["num_pts"]) == 4 and all(d.startswith("cuda") for d in out["devices"])
+
+
+# ---- utils.trace on the card ------------------------------------------------
+
+def test_trace_stages_cover_the_replay(cuda):
+    """A replayed 1920x1080 extraction with tracing on: every stage takes
+    time, and pyramid + octaves + merge come within 3% of the same call's
+    replay (its jit.call events from the end of the copy-in to the start of
+    the clones), so no part of the graph is outside a stage. The traced
+    program holds the off program's nodes and at most 40 stamp kernels."""
+    params = ct.SiftParams(num_octaves=5, thresh=3.0, max_pts=32768)
+    img = torch.as_tensor(synth.make_leaves_image(1080, 1920, 0), device=cuda)
+    pipeline._extract_sift_jit.clear_cache()
+    ct.extract_sift(img, params)
+    trace.enable()
+    try:
+        for _ in range(4):
+            assert int(ct.extract_sift(img, params).num_pts) > 1000
+        snap = trace.snapshot()
+    finally:
+        trace.disable()
+        trace.clear()
+        pipeline._extract_sift_jit.clear_cache()
+    nodes = {p["traced"]: p["nodes"] for p in snap["programs"]
+             if p["function"] == "_extract_sift_jit"}
+    assert nodes[True]["kernel"] == nodes[False]["kernel"] > 300
+    assert "stamp" not in nodes[False] and 0 < nodes[True]["stamp"] <= 40
+    assert {k: n for k, n in nodes[True].items() if k != "stamp"} == nodes[False]
+    assert snap["launches"]["stamp"] > 0
+    stages = snap["last_stages"]["_extract_sift_jit"]
+    assert [s["name"] for s in stages if s["parent"] == -1] == (
+        ["extract.pyramid"] + ["extract.octave"] * 5 + ["extract.merge"])
+    assert len(stages) == 2 + 5 * 5 and all(s["end_ms"] > s["start_ms"] for s in stages)
+    top = sum(s["end_ms"] - s["start_ms"] for s in stages if s["parent"] == -1)
+    call = [c for c in snap["calls"] if c["function"] == "_extract_sift_jit"][-1]
+    assert abs(top - call["replay_ms"]) <= 0.03 * call["replay_ms"], (top, call)
+    assert len(snap["calls"]) == 3 and snap["calls"][-1]["gap_ms"] > 0
+
+
+def test_trace_counts_the_off_program_as_captured(cuda):
+    """The nodes of a program captured with tracing off, counted during its
+    capture, equal those of the same body captured by hand and read from the
+    kept graph: no event-record node, the body's kernels."""
+    params = ct.SiftParams(num_octaves=3, thresh=2.0, max_pts=2048)
+    img = torch.as_tensor(make_test_image(192, 256, seed=79), device=cuda)
+    pipeline._extract_sift_jit.clear_cache()
+    ct.extract_sift(img, params)
+    (program,) = pipeline._extract_sift_jit.programs.values()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    static = img.clone()
+    with torch.cuda.graph(graph):
+        pipeline._extract(static, params)
+    by_hand = trace.graph_nodes(graph.raw_cuda_graph())
+    assert program.nodes == by_hand and program.nodes["kernel"] > 30
+    assert "event_record" not in program.nodes
+    pipeline._extract_sift_jit.clear_cache()
+
+
+def test_host_span_holds_the_profilers_launch_record(cuda):
+    """Host spans and the profiler's timeline share a clock: a span around
+    a kernel's launch contains the runtime call that launched it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda._sleep(10)
+    torch.cuda.synchronize()
+    trace.enable()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            with trace.span("sleep"):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        (span,) = [s for s in trace.snapshot()["spans"] if s["name"] == "sleep"]
+    finally:
+        trace.disable()
+        trace.clear()
+    launches = [(e.start_ns(), e.start_ns() + e.duration_ns())
+                for e in prof.profiler.kineto_results.events() if "LaunchKernel" in e.name()]
+    assert launches
+    assert any(span["start_ns"] <= a and b <= span["end_ns"] for a, b in launches), (
+        span, launches)

@@ -85,6 +85,9 @@ class FakeGraph:
     def replay(self):
         self.replays += 1
 
+    def pool(self):
+        return ("pool", id(self))
+
 
 @pytest.fixture
 def fake_card(monkeypatch):
@@ -94,7 +97,13 @@ def fake_card(monkeypatch):
     events = []
 
     class FakeEvent:
-        def record(self):
+        def __init__(self, **kwargs):
+            pass
+
+        def elapsed_time(self, other):
+            return 0.0
+
+        def record(self, stream=None):
             events.append(("record", self))
 
         def wait(self):
@@ -104,7 +113,7 @@ def fake_card(monkeypatch):
             events.append(("synchronize", self))
 
     @contextlib.contextmanager
-    def fake_capture(graph, stream=None):
+    def fake_capture(graph, pool=None, stream=None):
         events.append(("capture", stream))
         yield
         events.append(("captured", None))
@@ -120,6 +129,7 @@ def fake_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "graph", fake_capture)
     monkeypatch.setattr(torch.cuda, "device", fake_guard)
     monkeypatch.setattr(torch.cuda, "Stream", lambda device=None: ("side stream", device))
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: ("stream", device))
     monkeypatch.setattr(torch.cuda, "Event", FakeEvent)
     monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: False)
     monkeypatch.setattr(jit, "_graph_device", lambda args: dev if jit.tensors(args) else None)
