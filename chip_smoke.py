@@ -50,7 +50,12 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    (K4) against its plain version and both matchers timed on the fused
    leaves flow's 32768-slot sets, the hybrid matcher on the split flow's
    descriptor sets against the exact one, the compaction kernel on and off
-   (bit-identical), and split against fused.
+   (bit-identical), and split against fused. Then RANSAC's scoring kernel
+   (``ops.cuda.ransac``) on the hypotheses the fused leaves flow's RANSAC
+   scores, cut to the benchmark's 10000: counts equal to plain, MSAC sums
+   at rtol 1e-5 with the same argmin, timed single, graph-replayed (and at
+   the rescore's one hypothesis) and against plain, beside its bound and
+   the launch floor at its grid.
    Then the device time of one fused leaves flow without the host's
    dispatch: K1, K2 and K3 graph-replayed at the shapes of each of frame
    A's five octaves, K4 on the flow's own sets, summed over two extractions
@@ -187,9 +192,9 @@ def main() -> int:
     from cudasift_tpu_torch.ops import convolve, detect
     from cudasift_tpu_torch.ops import match as match_plain
     from cudasift_tpu_torch.ops import orient as orient_plain
-    from cudasift_tpu_torch.ops.cuda import (FUSED_PATH, KERNELS, LIBRARY, SPLIT_PATH, acquire,
-                                             compact, descriptor, dog, match, orient,
-                                             orient_desc, probes, refine)
+    from cudasift_tpu_torch.ops.cuda import (FUSED_PATH, HOMOGRAPHY, KERNELS, LIBRARY,
+                                             SPLIT_PATH, acquire, compact, descriptor, dog,
+                                             match, orient, orient_desc, probes, ransac, refine)
     from cudasift_tpu_torch.parallel.dryrun import dryrun_multichip
     from cudasift_tpu_torch.pipeline import _compact, _extract_octave
     from cudasift_tpu_torch.utils import jit, native, synth
@@ -204,12 +209,12 @@ def main() -> int:
     # ---- 2. Build --------------------------------------------------------
     stamp("build")
     t0 = time.perf_counter()
-    sources = sorted({(k.source, k.flags) for k in KERNELS})
+    sources = sorted({(k.source, k.flags) for k in KERNELS + HOMOGRAPHY})
     with ThreadPoolExecutor(len(sources) + 1) as pool:
         codec = pool.submit(native.have_native)
         libs = list(pool.map(lambda sf: build(*sf), sources))
         require(codec.result(), "the C++ host codec did not build (no g++)")
-    for k in KERNELS:
+    for k in KERNELS + HOMOGRAPHY:
         k.load()
     log(f"build: {time.perf_counter() - t0:.1f} s -> {[p.name for p in libs]} + host codec")
 
@@ -220,7 +225,9 @@ def main() -> int:
     # (K2: a warp a block; K6: four slots a block of 128 threads; 5120 slots
     # at octave 0 of a 1920x1080 frame). No kernel of that grid can take less;
     # a kernel's time is read against the larger of this and its bound.
-    floor_grids = {"one_block": (1, 32), "refine": (5120 // 32, 32), "orient": (5120 // 4, 128)}
+    floor_grids = {"one_block": (1, 32), "refine": (5120 // 32, 32), "orient": (5120 // 4, 128),
+                   # RANSAC's scoring: 10000 hypotheses, 512 a block, x 32768 / 256 splits.
+                   "ransac_score": (-(-10000 // 512) * (32768 // 256), 128)}
     floors = {name: time_ms_graph(probes.launch_floor, dev, *grid)
               for name, grid in floor_grids.items()}
     results = {"probe_launch_floor": dict(
@@ -864,11 +871,11 @@ def main() -> int:
         (eager) and RANSAC and IRLS both ways with their kernels and the
         device's busy share."""
         torch.cuda.synchronize()
-        for k in KERNELS:
+        for k in KERNELS + HOMOGRAPHY:
             k.launches = 0
         da, db, m, h1, nm, h2, nfit, err = demo_flow(fparams, *pair)
         torch.cuda.synchronize()
-        launches = {k.name: k.launches for k in KERNELS}
+        launches = {k.name: k.launches for k in KERNELS + HOMOGRAPHY}
         log(f"{label} launches: { {k.name: k.launches for k in LIBRARY} }")
         require(all(k.launches > 0 for k in path) and not any(k.launches for k in absent),
                 f"{label}: wrong kernels launched: {launches}")
@@ -909,11 +916,11 @@ def main() -> int:
         # the replayed and the eager outputs equal bit for bit, the same
         # launches counted.
         def fit_counted():
-            for k in KERNELS:
+            for k in KERNELS + HOMOGRAPHY:
                 k.launches = 0
             out = match_and_fit(da, db)
             torch.cuda.synchronize()
-            return out, {k.name: k.launches for k in LIBRARY}
+            return out, {k.name: k.launches for k in LIBRARY + HOMOGRAPHY}
 
         replayed, fit_counts = fit_counted()
         with jit.disable_graphs():
@@ -926,7 +933,8 @@ def main() -> int:
                                    "match_error"), got[1:], eager_fit[1:]):
                 require(torch.equal(a, b),
                         f"{label}: {name} differs between the {what} and the eager run")
-        require(fit_counts == eager_fit_counts and fit_counts[match.KERNEL.name] == 1,
+        require(fit_counts == eager_fit_counts and fit_counts[match.KERNEL.name] == 1
+                and fit_counts[ransac.SCORE_KERNEL.name] == 2,
                 f"{label}: match launches differ, replayed {fit_counts}, eager {eager_fit_counts}")
         if time_fit:
             # Each call timed dispatched from the host and replayed, by CUDA
@@ -1061,6 +1069,50 @@ def main() -> int:
         f"{results['match']['leaves']['loop_ms']:.4f} ms, K5 sweep "
         f"{results['match_sweep']['leaves']['loop_ms']:.4f} ms, torch.mm + torch.topk "
         f"{results['match']['leaves']['library_loop_ms']:.4f} ms")
+
+    # RANSAC's scoring kernel on the hypotheses the fused leaves flow's own
+    # RANSAC scores, taken from its eager body, cut to the benchmark's 10000
+    # (and the refit's rescore, one): counts equal to plain, MSAC sums at
+    # rtol 1e-5 (the same terms summed in another order) with the same
+    # argmin. Bound: about 30 flop a (hypothesis, live point) pair against
+    # 67 TFLOP/s; the live points' 16 bytes, the hypotheses' 32 and 12 bytes
+    # out a hypothesis.
+    seen = []
+
+    def recorded(*args):
+        seen.append(args)
+        return ransac.inlier_counts(*args)
+
+    lm = ct.match_sift_data(la, lb)
+    homography_ops.inlier_counts = recorded
+    try:
+        with jit.disable_graphs():
+            ct.find_homography(lm, torch.Generator(device=dev).manual_seed(SEED), **hom_kw)
+    finally:
+        homography_ops.inlier_counts = ransac.inlier_counts
+    require(len(seen) == 2, f"RANSAC scored {len(seen)} times, not twice")
+    s_args = (seen[0][0][:10000].contiguous(),) + seen[0][1:]
+    s_live, s_num = int(s_args[5]), s_args[0].shape[0]
+    sc, sm = ransac.inlier_counts(*s_args)
+    pc, pm = ransac.inlier_counts_plain(*s_args)
+    require(torch.equal(sc, pc), "RANSAC scoring counts differ from plain")
+    require(torch.allclose(sm, pm, rtol=1e-5, atol=0.0),
+            f"RANSAC scoring MSAC differs: max rel {float(((sm - pm) / pm).abs().max())}")
+    require(int(torch.argmin(sm)) == int(torch.argmin(pm)), "RANSAC scoring argmin differs")
+    results["ransac_score"] = dict(
+        max_abs_err=float((sm - pm).abs().max()), ms=time_ms(ransac.inlier_counts, *s_args),
+        graph_ms=time_ms_graph(ransac.inlier_counts, *s_args),
+        rescore_graph_ms=time_ms_graph(ransac.inlier_counts, s_args[0][:1], *s_args[1:]),
+        plain_ms=time_ms(ransac.inlier_counts_plain, *s_args, iters=5, warmup=1),
+        bound=bound(16 * s_live + (32 + 12) * s_num, 30.0 * s_num * s_live),
+        library_ms=None, hypotheses=s_num, live=s_live, slots=s_args[1].shape[0])
+    log(f"RANSAC scoring, {s_num} hypotheses x {s_live} live of {s_args[1].shape[0]} points: "
+        f"single {results['ransac_score']['ms']:.4f} ms, graph-replayed "
+        f"{results['ransac_score']['graph_ms']:.4f} ms (rescore "
+        f"{results['ransac_score']['rescore_graph_ms']:.4f}), plain "
+        f"{results['ransac_score']['plain_ms']:.4f} ms, bound "
+        f"{results['ransac_score']['bound'][0]:.4f} ms, MSAC max abs err "
+        f"{results['ransac_score']['max_abs_err']:.3g}")
 
     # Device time of one fused leaves flow (two extractions and one match)
     # without the host's dispatch: K1, K2 and K3 graph-replayed at the shapes
@@ -1338,14 +1390,14 @@ def main() -> int:
         write_pgm(left, leaves_a)
         write_pgm(right, leaf_b.cpu().numpy())
         torch.cuda.synchronize()
-        for k in KERNELS:
+        for k in KERNELS + HOMOGRAPHY:
             k.launches = 0
         captured = io.StringIO()
         with contextlib.redirect_stdout(captured):
             rc = cli.main(["--left", left, "--right", right, "--thresh", "3.0", "--json",
                            "--time", "--out", out_pgm])
         torch.cuda.synchronize()
-        cli_launches = {k.name: k.launches for k in KERNELS}
+        cli_launches = {k.name: k.launches for k in KERNELS + HOMOGRAPHY}
         for line in captured.getvalue().splitlines():
             log(f"cli | {line}")
         require(rc == 0, f"the CLI returned {rc}")
@@ -1363,12 +1415,12 @@ def main() -> int:
         log(f"CLI on the card: launches { {k.name: k.launches for k in FUSED_PATH} }, "
             f"annotated {annotated.shape} with {int((annotated == 255).sum())} white pixels, "
             f"C++ host codec {native.have_native()}")
-    for k in FUSED_PATH:
+    for k in FUSED_PATH + HOMOGRAPHY:
         launches[k.name] = cli_launches[k.name]
     launches["orient_desc_fast"] = fast_launches[orient_desc.KERNEL.name]
     # Launches of one flow (two extractions and a match): the fused leaves
     # flow's for its kernels, the split leaves flow's for the split ones.
-    flow_launches = {k.name: leaves_launches[k.name] for k in FUSED_PATH}
+    flow_launches = {k.name: leaves_launches[k.name] for k in FUSED_PATH + HOMOGRAPHY}
     flow_launches["orient_desc_fast"] = fast_launches[orient_desc.KERNEL.name]
     for k in SPLIT_PATH:
         if k not in FUSED_PATH:
@@ -1392,7 +1444,7 @@ def main() -> int:
         log(f"PASS {name}: error {err:.3g}")
 
     rows = []
-    by_name = {k.name: k for k in KERNELS + (probes.LAUNCH_FLOOR,)}
+    by_name = {k.name: k for k in KERNELS + HOMOGRAPHY + (probes.LAUNCH_FLOOR,)}
     by_name["orient_desc_fast"] = orient_desc.KERNEL
     for name, r in results.items():
         k = by_name[name]
@@ -1405,8 +1457,9 @@ def main() -> int:
                      "bound_by": r.pop("bound")[1], "library_ms": r.pop("library_ms"),
                      "floor_ms": floors.get(name, floors["one_block"]),
                      **r})   # N-call times, the matchers' main-path shape
-    # K1-K8, K3's fast sampler, P1, P2 and the launch-floor launcher.
-    require(len(rows) == len(KERNELS) + 2, f"{len(rows)} kernel rows for {len(KERNELS)} kernels")
+    # K1-K8, K3's fast sampler, P1, P2, RANSAC's scoring and the launch floor.
+    require(len(rows) == len(KERNELS) + len(HOMOGRAPHY) + 2,
+            f"{len(rows)} kernel rows for {len(KERNELS) + len(HOMOGRAPHY)} kernels")
     log(f"extraction, matching, RANSAC and IRLS timings (ms): {json.dumps(timings)}")
     log(f"wall time {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -5,14 +5,17 @@ plain PyTorch version on CPU tensors; any other device raises.
 """
 
 from . import (acquire, compact, descriptor, dog, match, orient, orient_desc, probes,
-               refine)
+               ransac, refine)
 
 # The library kernels, K1-K8.
 LIBRARY = (dog.KERNEL, refine.KERNEL, orient_desc.KERNEL, match.KERNEL,
            match.SWEEP_KERNEL, orient.KERNEL, descriptor.KERNEL, compact.KERNEL)
-# Every kernel: K1-K8, the four patch-acquisition launchers (P1) and the
-# eight capability probes (P2).
+# Every port of a TPU kernel: K1-K8, the four patch-acquisition launchers
+# (P1) and the eight capability probes (P2).
 KERNELS = LIBRARY + tuple(acquire.KERNELS.values()) + probes.KERNELS
+# The kernels of the homography programs, which stand beside the XLA code of
+# the JAX package and replace no TPU kernel.
+HOMOGRAPHY = (ransac.SCORE_KERNEL,)
 # The kernels each extraction flow launches, in pipeline order, with the
 # matcher: the fused path (the default, SiftParams(use_fused=True)) and the
 # split path (SiftParams(use_fused=False, use_pallas_compact=True)).

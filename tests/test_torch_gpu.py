@@ -1,8 +1,9 @@
 """The CUDA kernels (K1-K8 with K3's three samplers, the patch-acquisition
-kernels P1 and the probes P2) against their plain versions on the card, the
-pipeline, fused and split, on the card against the CPU, the entry points'
-captured programs (extraction, RANSAC, IRLS) against their eager
-runs, ``utils.trace`` on a replayed program and on the profiler's clock, the sharded matcher and extraction and the dry run of
+kernels P1 and the probes P2, RANSAC's scoring kernel) against their plain
+versions on the card, the pipeline, fused and split, on the card against
+the CPU, the entry points' captured programs (extraction, RANSAC, IRLS)
+against their eager runs, ``utils.trace`` on a replayed program and on the
+profiler's clock, the sharded matcher and extraction and the dry run of
 ``cudasift_tpu_torch.parallel`` on a mesh that repeats the card, and the
 demo CLI on the card. Marked ``gpu``: they skip without a CUDA device. On the card run
 them with ``python -m pytest tests/test_torch_gpu.py -q --noconftest``: the
@@ -15,13 +16,14 @@ import pytest
 import torch
 
 import cudasift_tpu_torch as ct
+import scoring_cases
 from cudasift_tpu_torch import cli
 from cudasift_tpu_torch.config import laplace_kernels
 from cudasift_tpu_torch.ops import convolve, detect
 from cudasift_tpu_torch.ops import match as match_plain
 from cudasift_tpu_torch.ops import orient as orient_plain
 from cudasift_tpu_torch.ops.cuda import (FUSED_PATH, acquire, compact, descriptor, dog, match,
-                                         orient, orient_desc, probes, refine)
+                                         orient, orient_desc, probes, ransac, refine)
 from cudasift_tpu_torch import pipeline
 from cudasift_tpu_torch.ops.cuda import LIBRARY
 from cudasift_tpu_torch.utils import io, jit, synth, trace
@@ -913,6 +915,102 @@ def test_match_and_homography_programs_equal_eager(cuda):
         for a, b in zip(got[1:], ref[1:]):
             assert torch.equal(a, b), call
     assert all(len(p.programs) == 1 for p in progs)
+
+
+def assert_scoring_kernel_matches_plain(h8, fields, num_pts, thresh):
+    """The kernel against its plain version on the card: counts equal, MSAC
+    sums to 1e-5 with the same argmin, one launch; NaN poured into the point
+    fields past ``num_pts`` changes no bit (no dead column is read)."""
+    before = ransac.SCORE_KERNEL.launches
+    counts, msac = ransac.inlier_counts(h8, *fields, num_pts, thresh)
+    ref_counts, ref_msac = ransac.inlier_counts_plain(h8, *fields, num_pts, thresh)
+    torch.cuda.synchronize()
+    assert ransac.SCORE_KERNEL.launches == before + 1
+    assert torch.equal(counts, ref_counts)
+    torch.testing.assert_close(msac, ref_msac, rtol=1e-5, atol=0)
+    assert int(torch.argmin(msac)) == int(torch.argmin(ref_msac))
+    n = int(num_pts)
+    poured = [f.clone() for f in fields]
+    for f in poured:
+        f[n:] = float("nan")
+    got = ransac.inlier_counts(h8, *poured, num_pts, thresh)
+    assert torch.equal(got[0], counts) and torch.equal(got[1], msac)
+    return counts, msac
+
+
+@pytest.mark.parametrize("num_h,num_pts,plant", scoring_cases.CASES, ids=scoring_cases.IDS)
+def test_scoring_kernel_matches_plain(cuda, num_h, num_pts, plant):
+    h8, fields = scoring_cases.scoring_case(num_h, num_pts, plant)
+    assert_scoring_kernel_matches_plain(
+        torch.tensor(h8, device=cuda), [torch.tensor(f, device=cuda) for f in fields],
+        torch.tensor(num_pts, dtype=torch.int32, device=cuda),
+        torch.tensor(5.0, device=cuda))
+
+
+def test_scoring_kernel_on_the_1080p_pair_flow(cuda, monkeypatch):
+    """The 10000 hypotheses RANSAC scores on a 1920x1080 dead-leaves pair at
+    the benchmark's settings, taken from the eager program as it calls the
+    scoring, against the plain version; captured, the scoring is two kernel
+    nodes (the two of ``csrc/ransac_score.cu``) and nothing else, so no
+    PyTorch kernel runs in it."""
+    from cudasift_tpu_torch.ops import homography
+
+    h, w = 1080, 1920
+    frame = synth.make_leaves_image(h, w, 61)
+    params = ct.SiftParams(num_octaves=5, init_blur=1.0, thresh=3.0, max_pts=32768)
+    da = ct.extract_sift(torch.as_tensor(frame, device=cuda), params)
+    warped = synth.warp_image(frame, synth.known_homography(h, w))
+    db = ct.extract_sift(torch.as_tensor(warped, device=cuda), params)
+    m = ct.match_sift_data(da, db)
+    calls = []
+
+    def recorded(*args):
+        calls.append(args)
+        return ransac.inlier_counts(*args)
+
+    monkeypatch.setattr(homography, "inlier_counts", recorded)
+    with jit.disable_graphs():
+        ct.find_homography(m, torch.Generator(device=cuda).manual_seed(7), num_loops=10000,
+                           min_score=0.0, max_ambiguity=0.8, thresh=5.0)
+    assert [c[0].shape[0] for c in calls] == [10000, 1]
+    h8, *fields, num_pts, thresh = calls[0]
+    assert 5000 < int(num_pts) < 32768
+    counts, _ = assert_scoring_kernel_matches_plain(h8, fields, num_pts, thresh)
+    assert int(counts.max()) > 1000
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        ransac.inlier_counts(h8, *fields, num_pts, thresh)
+        nodes = trace.capture_nodes()
+    assert nodes == {"kernel": 2}, nodes
+
+
+def test_scoring_kernel_in_the_ransac_program(cuda):
+    """``find_homography`` launches the scoring kernel twice a call (the
+    hypotheses and the refit's rescore), eager, capturing and replayed, and
+    two replays give the eager run's bits."""
+    from cudasift_tpu_torch.ops import homography
+
+    homography._find_homography_jit.clear_cache()
+    m = ct.match_sift_data(*matched_flow(cuda)[:2])
+    gen = torch.Generator(device=cuda)
+
+    def call():
+        gen.manual_seed(3)
+        before = ransac.SCORE_KERNEL.launches
+        out = ct.find_homography(m, gen, num_loops=2048, min_score=0.0, max_ambiguity=0.9,
+                                 thresh=5.0)
+        torch.cuda.synchronize()
+        return out, ransac.SCORE_KERNEL.launches - before
+
+    with jit.disable_graphs():
+        eager, launches = call()
+    assert launches == 2
+    for what in ("first", "replay", "replay again"):
+        out, launches = call()
+        assert launches == 2, what
+        assert all(torch.equal(a, b) for a, b in zip(out, eager)), what
+    assert len(homography._find_homography_jit.programs) == 1
+    assert int(eager[1]) > 50
 
 
 def test_sharded_matcher_on_a_repeated_device_mesh(cuda):

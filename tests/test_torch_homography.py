@@ -9,6 +9,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import scoring_cases
 from cudasift_tpu import sift_data as jsd
 from cudasift_tpu.ops import homography as jhom
 from cudasift_tpu.ops import linalg as jlin
@@ -16,6 +17,7 @@ from cudasift_tpu.ops import linalg as jlin
 from cudasift_tpu_torch.convert import sift_data_from_numpy
 from cudasift_tpu_torch.ops import homography as thom
 from cudasift_tpu_torch.ops import linalg as tlin
+from cudasift_tpu_torch.ops.cuda import ransac
 from cudasift_tpu_torch.utils.synth import corner_error, known_homography
 
 H_IMG, W_IMG = 192, 256
@@ -166,3 +168,28 @@ def test_homography_params_defaults_mirror_jax(field):
     from cudasift_tpu_torch.config import HomographyParams as TParams
 
     assert getattr(TParams(), field) == getattr(JParams(), field)
+
+
+@pytest.mark.parametrize("num_h,num_pts,plant", scoring_cases.CASES, ids=scoring_cases.IDS)
+def test_scoring_wrapper_matches_jax(num_h, num_pts, plant):
+    """``ops.cuda.ransac.inlier_counts`` on CPU tensors (its plain version)
+    against the JAX package's scoring: counts equal, MSAC sums to 1e-6; a
+    ragged ``num_pts`` (300 is no multiple of the kernel's 256-point split)
+    counts only the live points."""
+    h8, fields = scoring_cases.scoring_case(num_h, num_pts, plant)
+    valid = np.arange(fields[0].shape[0]) < num_pts
+    jc, jm = jhom._inlier_counts(jnp.asarray(h8), *(jnp.asarray(f)[None, :] for f in fields),
+                                 jnp.asarray(valid), 5.0)
+    counts, msac = ransac.inlier_counts(
+        torch.tensor(h8), *(torch.tensor(f) for f in fields),
+        torch.tensor(num_pts, dtype=torch.int32), torch.tensor(5.0))
+    assert counts.dtype == torch.int64 and msac.dtype == torch.float32
+    assert counts.shape == msac.shape == (num_h,)
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(jc))
+    np.testing.assert_allclose(msac.numpy(), np.asarray(jm), rtol=1e-6, atol=0)
+    if num_pts == 0:
+        assert not counts.any() and not msac.any()
+    if plant is not None:
+        assert bool(torch.isfinite(msac).all())
+    if num_h == 10000:                       # both near and far hypotheses
+        assert int(counts.min()) == 0 and int(counts.max()) > 150
