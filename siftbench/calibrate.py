@@ -87,7 +87,7 @@ def main(argv=None) -> int:
     plan += [("drop-one", int(s)) for s in args.drop_one_seeds.split(",") if s]
     for side, seed in plan:
         t = time.perf_counter()
-        prog = (program.control(cfg, dev) if side == "control"
+        prog = (program.control(cfg, dev, registry) if side == "control"
                 else DropOne(program.Port(cfg, dev), seed) if side == "drop-one" else None)
         r = harness.run_cell(args.workload, seed, args.seconds, False, bench=bench,
                              registry=registry, device=dev, program=prog)

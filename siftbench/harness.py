@@ -94,6 +94,9 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool, *,
     cfg = registry.config(cell["config"])
     traffic = registry.traffic(cell["traffic"])
     limits = registry.limits(cell_name)["check"]
+    # Built now, so a setting that the configuration's reference has no path
+    # for stops the run in set-up; it holds no tensors.
+    reference = Reference(cfg, device, registry=registry)
     h, w = cfg["frame"]["height"], cfg["frame"]["width"]
     on_card = device.type == "cuda"
 
@@ -224,7 +227,6 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool, *,
     # The program's captured programs stay (1.0-1.6 GB of the card's 80).
     if on_card:
         torch.cuda.empty_cache()
-    reference = Reference(cfg, device)
     numbers = compare.worst(flow.judge(kept, reference)) if kept else {}
     check = {name: [numbers.get(name, math.inf), limit] for name, limit in limits.items()}
     correct = (len(errors) == 0 and bool(kept)

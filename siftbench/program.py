@@ -13,8 +13,8 @@ import torch
 
 from .reference import homography as ref_homography
 from .reference import match as ref_match
-from .reference import sift as ref_sift
 from .reference.precision import FLOAT32, TF32, Precision
+from .registry import Registry
 
 
 class Port:
@@ -53,18 +53,23 @@ class Port:
 
 class Reference:
     """The plain reference (``siftbench/reference``) in ``precision``:
-    float32 judges, TF32 is the control."""
+    float32 judges, TF32 is the control. Extraction's is the module that the
+    configuration names under ``"reference"`` (default ``sift``), found by
+    ``registry``; matching's and the homographies' are fixed."""
 
-    def __init__(self, cfg: dict, device: torch.device, precision: Precision = FLOAT32):
+    def __init__(self, cfg: dict, device: torch.device, precision: Precision = FLOAT32,
+                 registry: Registry | None = None):
         self.name = f"reference-{precision}"
-        self.sift = ref_sift.SiftConfig.from_dict(cfg["sift"])
+        registry = Registry() if registry is None else registry
+        self.extraction = registry.reference(cfg.get("reference", "sift"))
+        self.sift = self.extraction.SiftConfig.from_dict(cfg["sift"])
         self.find_kw = dict(cfg["find_homography"])
         self.improve_kw = dict(cfg["improve_homography"])
         self.device = device
         self.precision = precision
 
     def extract(self, image):
-        return ref_sift.extract(image, self.sift, self.precision)
+        return self.extraction.extract(image, self.sift, self.precision)
 
     def match(self, a, b):
         return ref_match.match(a, b, self.precision)
@@ -87,6 +92,6 @@ class Reference:
                                                  kw["thresh"], self.precision)
 
 
-def control(cfg: dict, device: torch.device) -> Reference:
+def control(cfg: dict, device: torch.device, registry: Registry | None = None) -> Reference:
     """The control: the reference at the precision just below float32."""
-    return Reference(cfg, device, TF32)
+    return Reference(cfg, device, TF32, registry)

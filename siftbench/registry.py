@@ -10,7 +10,10 @@ Under each root (``siftbench/`` first unless told otherwise):
 - ``limits/<cell>.json``: the limits of the numbers a cell is judged by;
 - ``layers/<metric>.py``: a per-layer metric (NAME, UNIT, LAYER, SOURCE,
   ``read(reading)``);
-- ``counts/<kernel>.py``: the operations and bytes a stage needs.
+- ``counts/<kernel>.py``: the operations and bytes a stage needs;
+- ``reference/<name>.py``: a plain reference of extraction, named by a
+  configuration's ``"reference"`` (default ``sift``): ``SiftConfig.from_dict``
+  and ``extract(image, cfg, precision)``.
 
 Adding any of them is adding a file: nothing here lists them.
 """
@@ -72,6 +75,16 @@ class Registry:
 
     def request(self, name: str):
         return self.module("requests", name).REQUEST
+
+    def reference(self, name: str):
+        """The extraction reference ``reference/<name>.py``. One under
+        ``siftbench/reference/`` is the package's own module, so its relative
+        imports hold; one in another root loads from its path and imports
+        absolutely (``from siftbench.reference import sift``)."""
+        p = self.path("reference", name, ".py")
+        if p.resolve().parent == HERE / "reference":
+            return importlib.import_module(f"{__package__}.reference.{name}")
+        return self.module("reference", name)
 
     def layer(self, name: str):
         return self.module("layers", name)

@@ -22,6 +22,13 @@ def test_top_level_names_compare_whole(tmp_path):
                      "reference/leak.py: ['cudasift_tpu_torch']"]
 
 
+def test_a_reference_in_another_root_may_not_import_the_port(tmp_path):
+    (tmp_path / "reference").mkdir()
+    (tmp_path / "reference" / "probe.py").write_text(
+        "from siftbench.reference import sift\nimport cudasift_tpu_torch.ops\n")
+    assert imports.violations(tmp_path) == ["reference/probe.py: ['cudasift_tpu_torch']"]
+
+
 def test_loaded_modules_are_checked_by_top_level_name():
     assert imports.loaded_forbidden({"cudasift_tpu_torch": 1, "cudasift_tpu_torch.ops": 1,
                                      "jaxtyping": 1}) == set()
