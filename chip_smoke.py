@@ -55,7 +55,11 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    scores, cut to the benchmark's 10000: counts equal to plain, MSAC sums
    at rtol 1e-5 with the same argmin, timed single, graph-replayed (and at
    the rescore's one hypothesis) and against plain, beside its bound and
-   the launch floor at its grid.
+   the launch floor at its grid. Then ScaleUp (``ops.cuda.scale_up``) on a
+   1280x960 dead-leaves frame: equal to plain bit for bit, timed single,
+   over 100 calls and graph-replayed against plain and its bound; and the
+   upscale cell's extraction (``scale_up=True``, thresh 3.0) at that frame,
+   one ScaleUp launch a call, replayed equal to eager.
    Then the device time of one fused leaves flow without the host's
    dispatch: K1, K2 and K3 graph-replayed at the shapes of each of frame
    A's five octaves, K4 on the flow's own sets, summed over two extractions
@@ -193,8 +197,9 @@ def main() -> int:
     from cudasift_tpu_torch.ops import match as match_plain
     from cudasift_tpu_torch.ops import orient as orient_plain
     from cudasift_tpu_torch.ops.cuda import (FUSED_PATH, HOMOGRAPHY, KERNELS, LIBRARY,
-                                             SPLIT_PATH, acquire, compact, descriptor, dog,
-                                             match, orient, orient_desc, probes, ransac, refine)
+                                             SPLIT_PATH, UPSCALE, acquire, compact, descriptor,
+                                             dog, match, orient, orient_desc, probes, ransac,
+                                             refine, scale_up)
     from cudasift_tpu_torch.parallel.dryrun import dryrun_multichip
     from cudasift_tpu_torch.pipeline import _compact, _extract_octave
     from cudasift_tpu_torch.utils import jit, native, synth
@@ -209,12 +214,12 @@ def main() -> int:
     # ---- 2. Build --------------------------------------------------------
     stamp("build")
     t0 = time.perf_counter()
-    sources = sorted({(k.source, k.flags) for k in KERNELS + HOMOGRAPHY})
+    sources = sorted({(k.source, k.flags) for k in KERNELS + HOMOGRAPHY + UPSCALE})
     with ThreadPoolExecutor(len(sources) + 1) as pool:
         codec = pool.submit(native.have_native)
         libs = list(pool.map(lambda sf: build(*sf), sources))
         require(codec.result(), "the C++ host codec did not build (no g++)")
-    for k in KERNELS + HOMOGRAPHY:
+    for k in KERNELS + HOMOGRAPHY + UPSCALE:
         k.load()
     log(f"build: {time.perf_counter() - t0:.1f} s -> {[p.name for p in libs]} + host codec")
 
@@ -1114,6 +1119,50 @@ def main() -> int:
         f"{results['ransac_score']['bound'][0]:.4f} ms, MSAC max abs err "
         f"{results['ransac_score']['max_abs_err']:.3g}")
 
+    # ScaleUp on the upscale cell's 1280x960 frame: equal to plain bit for
+    # bit. Bound: the frame read once and its upsample written once, 20 bytes
+    # an input pixel (8 flop). Graph-replayed, the 100 calls write one pooled
+    # output, which the 50 MB L2 can hold: ``flow`` in the benchmark's trace
+    # (``upscale_roofline.upscale``) is the kernel between the other stages.
+    up_img = torch.as_tensor(synth.make_leaves_image(960, 1280, SEED), device=dev)
+    up_got = scale_up.scale_up(up_img)
+    up_ref = convolve.scale_up(up_img)
+    torch.cuda.synchronize()
+    require(torch.equal(up_got, up_ref),
+            f"ScaleUp differs from plain: max abs {float((up_got - up_ref).abs().max())}")
+    up_px = 960 * 1280
+    results["scale_up"] = dict(
+        max_abs_err=0.0, ms=time_ms(scale_up.scale_up, up_img),
+        loop_ms=time_ms_loop(scale_up.scale_up, up_img, n=100),
+        graph_ms=time_ms_graph(scale_up.scale_up, up_img),
+        plain_ms=time_ms(convolve.scale_up, up_img),
+        plain_graph_ms=time_ms_graph(convolve.scale_up, up_img),
+        bound=bound(20 * up_px, 8 * up_px), library_ms=None)
+    r = results["scale_up"]
+    log(f"ScaleUp at 1280x960: equal to plain; single {r['ms']:.4f} ms, over 100 "
+        f"{r['loop_ms']:.4f} ms, graph-replayed {r['graph_ms']:.4f} ms "
+        f"({20 * up_px / r['graph_ms'] / 1e9:.2f} TB/s), plain {r['plain_ms']:.4f} ms "
+        f"(graph {r['plain_graph_ms']:.4f}), bound {r['bound'][0]:.4f} ms")
+    # The upscale cell's extraction at that frame: one ScaleUp launch a call,
+    # eager and replayed, the replay equal to the eager run.
+    up_params = ct.SiftParams(num_octaves=5, init_blur=1.0, thresh=3.0, max_pts=32768,
+                              scale_up=True)
+    before = scale_up.KERNEL.launches
+    with jit.disable_graphs():
+        up_eager = ct.extract_sift(up_img, up_params)
+    torch.cuda.synchronize()
+    launches["scale_up"] = scale_up.KERNEL.launches - before
+    for _ in range(3):
+        up_replay = ct.extract_sift(up_img, up_params)
+    torch.cuda.synchronize()
+    require(launches["scale_up"] == 1 and scale_up.KERNEL.launches - before == 4,
+            f"ScaleUp launched {scale_up.KERNEL.launches - before} times in 4 extractions")
+    require(all(torch.equal(getattr(up_replay, f), getattr(up_eager, f))
+                for f in ct.SiftData.__dataclass_fields__),
+            "the upscaled extraction replayed differs from its eager run")
+    log(f"upscaled extraction at 1280x960: {int(up_eager.num_pts)} points, overflow "
+        f"{int(up_eager.overflow)}, replay equal to eager, one ScaleUp launch a call")
+
     # Device time of one fused leaves flow (two extractions and one match)
     # without the host's dispatch: K1, K2 and K3 graph-replayed at the shapes
     # of each of frame A's five octaves, fed as the pipeline feeds them, and
@@ -1444,7 +1493,7 @@ def main() -> int:
         log(f"PASS {name}: error {err:.3g}")
 
     rows = []
-    by_name = {k.name: k for k in KERNELS + HOMOGRAPHY + (probes.LAUNCH_FLOOR,)}
+    by_name = {k.name: k for k in KERNELS + HOMOGRAPHY + UPSCALE + (probes.LAUNCH_FLOOR,)}
     by_name["orient_desc_fast"] = orient_desc.KERNEL
     for name, r in results.items():
         k = by_name[name]
@@ -1457,9 +1506,10 @@ def main() -> int:
                      "bound_by": r.pop("bound")[1], "library_ms": r.pop("library_ms"),
                      "floor_ms": floors.get(name, floors["one_block"]),
                      **r})   # N-call times, the matchers' main-path shape
-    # K1-K8, K3's fast sampler, P1, P2, RANSAC's scoring and the launch floor.
-    require(len(rows) == len(KERNELS) + len(HOMOGRAPHY) + 2,
-            f"{len(rows)} kernel rows for {len(KERNELS) + len(HOMOGRAPHY)} kernels")
+    # K1-K8, K3's fast sampler, P1, P2, RANSAC's scoring, ScaleUp and the
+    # launch floor.
+    n_kernels = len(KERNELS) + len(HOMOGRAPHY) + len(UPSCALE)
+    require(len(rows) == n_kernels + 2, f"{len(rows)} kernel rows for {n_kernels} kernels")
     log(f"extraction, matching, RANSAC and IRLS timings (ms): {json.dumps(timings)}")
     log(f"wall time {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": rows}))

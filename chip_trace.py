@@ -40,8 +40,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # The readers of the port's trace beyond BENCHMARK.json: (moves, cells).
-FRAMES = ["1080p-frames", "960p-frames"]
+FRAMES = ["1080p-frames", "960p-frames", "960p-upscale"]
 HOOKED = {
+    "upscale_ms.upscale": ("frames_per_s", ["960p-upscale"]),
     "pyramid_ms.frames": ("frames_per_s", FRAMES),
     "compact_ms.frames": ("frames_per_s", FRAMES),
     "glue_ms.frames": ("frames_per_s", FRAMES),

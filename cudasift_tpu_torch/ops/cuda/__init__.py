@@ -5,7 +5,7 @@ plain PyTorch version on CPU tensors; any other device raises.
 """
 
 from . import (acquire, compact, descriptor, dog, match, orient, orient_desc, probes,
-               ransac, refine)
+               ransac, refine, scale_up)
 
 # The library kernels, K1-K8.
 LIBRARY = (dog.KERNEL, refine.KERNEL, orient_desc.KERNEL, match.KERNEL,
@@ -16,6 +16,10 @@ KERNELS = LIBRARY + tuple(acquire.KERNELS.values()) + probes.KERNELS
 # The kernels of the homography programs, which stand beside the XLA code of
 # the JAX package and replace no TPU kernel.
 HOMOGRAPHY = (ransac.SCORE_KERNEL,)
+# The upsample that starts an extraction with SiftParams(scale_up=True),
+# which stands beside the XLA code of the JAX package and replaces no TPU
+# kernel.
+UPSCALE = (scale_up.KERNEL,)
 # The kernels each extraction flow launches, in pipeline order, with the
 # matcher: the fused path (the default, SiftParams(use_fused=True)) and the
 # split path (SiftParams(use_fused=False, use_pallas_compact=True)).

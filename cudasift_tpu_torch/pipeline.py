@@ -28,8 +28,14 @@ params, device) (``utils.jit.cuda_graph_jit``, in the role of the JAX
 package's ``tpu_jit`` programs); inside ``utils.jit.disable_graphs()`` they
 dispatch every operation from the host instead.
 
+With ``SiftParams(scale_up=True)`` the frame is first upsampled 2x (the
+ScaleUp kernel, ``ops/cuda/scale_up.py``), the pyramid starts from it, and
+the merged positions and scales are halved (RescalePositions(0.5),
+cudaSiftH.cu:130).
+
 With ``utils.trace`` on, the body marks its stages: ``extract.pyramid``
-(the blurred base, its octaves and the zero overflow count), per octave
+(the blurred base, its octaves and the zero overflow count; with
+``scale_up`` it holds ``extract.upscale``, the ScaleUp kernel), per octave
 ``extract.octave`` around ``extract.dog`` (K1), ``extract.compact``
 (compaction and its dropped count), ``extract.refine`` (K2) and ``extract.describe`` (K3; on the
 split path K6 and K7, each an interval of that name), then
@@ -169,7 +175,8 @@ def _extract(image: torch.Tensor, params: SiftParams) -> SiftData:
     with trace.stage("extract.pyramid", dev):
         img = image.to(torch.float32)
         if params.scale_up:
-            img = convolve.scale_up(img)
+            with trace.stage("extract.upscale", dev):
+                img = cuda.scale_up.scale_up(img.contiguous())
         low = convolve.low_pass(img, max(params.init_blur, 0.001))
 
         kernels = params.laplace_kernels

@@ -1,6 +1,6 @@
 """The CUDA kernels (K1-K8 with K3's three samplers, the patch-acquisition
-kernels P1 and the probes P2, RANSAC's scoring kernel) against their plain
-versions on the card, the pipeline, fused and split, on the card against
+kernels P1 and the probes P2, RANSAC's scoring kernel, ScaleUp) against their
+plain versions on the card, the pipeline, fused and split, on the card against
 the CPU, the entry points' captured programs (extraction, RANSAC, IRLS)
 against their eager runs, ``utils.trace`` on a replayed program and on the
 profiler's clock, the sharded matcher and extraction and the dry run of
@@ -23,7 +23,7 @@ from cudasift_tpu_torch.ops import convolve, detect
 from cudasift_tpu_torch.ops import match as match_plain
 from cudasift_tpu_torch.ops import orient as orient_plain
 from cudasift_tpu_torch.ops.cuda import (FUSED_PATH, acquire, compact, descriptor, dog, match,
-                                         orient, orient_desc, probes, ransac, refine)
+                                         orient, orient_desc, probes, ransac, refine, scale_up)
 from cudasift_tpu_torch import pipeline
 from cudasift_tpu_torch.ops.cuda import LIBRARY
 from cudasift_tpu_torch.utils import io, jit, synth, trace
@@ -1062,6 +1062,98 @@ def test_dryrun_on_the_card(cuda):
 
     out = dryrun_multichip(4)
     assert len(out["num_pts"]) == 4 and all(d.startswith("cuda") for d in out["devices"])
+
+
+# ---- ScaleUp ------------------------------------------------------------------
+
+# One pixel, one row or column, odd widths (8-byte stores), a small frame and
+# the 1280x960 frame of the upscale cell.
+@pytest.mark.parametrize("h,w", [(1, 1), (1, 6), (6, 1), (5, 7), (7, 9), (6, 8), (192, 256),
+                                 (960, 1280)])
+def test_scale_up_kernel_equals_plain(cuda, h, w):
+    img = torch.as_tensor(make_test_image(max(h, 8), max(w, 8), seed=h + w)[:h, :w].copy(),
+                          device=cuda)
+    before = scale_up.KERNEL.launches
+    got = scale_up.scale_up(img)
+    torch.cuda.synchronize()
+    assert scale_up.KERNEL.launches == before + 1
+    assert got.shape == (2 * h, 2 * w) and torch.equal(got, convolve.scale_up(img))
+    # The same pixels one float past an allocation's start (the input off
+    # 8 bytes: scalar loads, 8-byte stores).
+    store = torch.empty(h * w + 1, device=cuda)
+    shifted = store[1:].view(h, w)
+    shifted.copy_(img)
+    assert torch.equal(scale_up.scale_up(shifted), got)
+
+
+def test_scale_up_kernel_in_the_extraction_program(cuda):
+    """``extract_sift`` with ``scale_up`` launches the kernel once a call,
+    eager, capturing and replayed, each equal to the eager run; its program
+    holds four kernel nodes more than the same program without upscale (the
+    kernel and the merge's three halvings); traced, ``extract.upscale`` is a stage of its
+    own inside ``extract.pyramid``."""
+    params = ct.SiftParams(num_octaves=3, thresh=2.0, max_pts=2048, scale_up=True)
+    img = torch.as_tensor(make_test_image(192, 256, seed=80), device=cuda)
+    pipeline._extract_sift_jit.clear_cache()
+
+    def call(p=params):
+        before = scale_up.KERNEL.launches
+        out = ct.extract_sift(img, p)
+        torch.cuda.synchronize()
+        return out, scale_up.KERNEL.launches - before
+
+    try:
+        with jit.disable_graphs():
+            eager, launches = call()
+        assert launches == 1 and int(eager.num_pts) > 30
+        for what in ("capturing", "replay", "replay again"):
+            out, launches = call()
+            assert launches == 1, what
+            assert_sift_equal(out, eager, what)
+        (program,) = pipeline._extract_sift_jit.programs.values()
+        up_nodes = program.nodes["kernel"]
+        pipeline._extract_sift_jit.clear_cache()
+        assert call(ct.SiftParams(num_octaves=3, thresh=2.0, max_pts=2048))[1] == 0
+        (plain,) = pipeline._extract_sift_jit.programs.values()
+        # ScaleUp and the three halvings of the merged positions and scales.
+        assert up_nodes == plain.nodes["kernel"] + 1 + 3
+        pipeline._extract_sift_jit.clear_cache()
+        trace.enable()
+        for _ in range(3):
+            assert call()[1] == 1
+        stages = trace.snapshot()["last_stages"]["_extract_sift_jit"]
+    finally:
+        trace.disable()
+        trace.clear()
+        pipeline._extract_sift_jit.clear_cache()
+    names = [s["name"] for s in stages]
+    up = stages[names.index("extract.upscale")]
+    assert stages[up["parent"]]["name"] == "extract.pyramid"
+
+
+def test_a_default_program_keeps_its_nodes_and_stages(cuda):
+    """At the benchmark's 1920x1080 settings, without ``scale_up``: 361
+    kernel nodes, and no ``extract.upscale`` stage when traced."""
+    params = ct.SiftParams(num_octaves=5, init_blur=1.0, thresh=3.0, max_pts=32768)
+    img = torch.as_tensor(synth.make_leaves_image(1080, 1920, 0), device=cuda)
+    pipeline._extract_sift_jit.clear_cache()
+    before = scale_up.KERNEL.launches
+    try:
+        ct.extract_sift(img, params)
+        (program,) = pipeline._extract_sift_jit.programs.values()
+        assert program.nodes["kernel"] == 361
+        trace.enable()
+        for _ in range(3):
+            ct.extract_sift(img, params)
+        snap = trace.snapshot()
+    finally:
+        trace.disable()
+        trace.clear()
+        pipeline._extract_sift_jit.clear_cache()
+    assert scale_up.KERNEL.launches == before
+    assert snap["stages"]["extract.pyramid"]["count"] >= 1
+    assert "extract.upscale" not in snap["stages"]
+    assert "extract.upscale" not in {s["name"] for s in snap["last_stages"]["_extract_sift_jit"]}
 
 
 # ---- utils.trace on the card ------------------------------------------------
