@@ -55,7 +55,12 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    scores, cut to the benchmark's 10000: counts equal to plain, MSAC sums
    at rtol 1e-5 with the same argmin, timed single, graph-replayed (and at
    the rescore's one hypothesis) and against plain, beside its bound and
-   the launch floor at its grid. Then ScaleUp (``ops.cuda.scale_up``) on a
+   the launch floor at its grid. Then the weighted refit
+   (``ops.cuda.lstsq``) on the four LO refits of the fused leaves flow's
+   RANSAC and at three weightings (IRLS's shape): ok equal to the plain QR and a at
+   rtol 1e-4, timed single, graph-replayed and against plain, beside its
+   bound and the launch floor at its grid.
+   Then ScaleUp (``ops.cuda.scale_up``) on a
    1280x960 dead-leaves frame: equal to plain bit for bit, timed single,
    over 100 calls and graph-replayed against plain and its bound; and the
    upscale cell's extraction (``scale_up=True``, thresh 3.0) at that frame,
@@ -198,8 +203,8 @@ def main() -> int:
     from cudasift_tpu_torch.ops import orient as orient_plain
     from cudasift_tpu_torch.ops.cuda import (FUSED_PATH, HOMOGRAPHY, KERNELS, LIBRARY,
                                              SPLIT_PATH, UPSCALE, acquire, compact, descriptor,
-                                             dog, match, orient, orient_desc, probes, ransac,
-                                             refine, scale_up)
+                                             dog, lstsq, match, orient, orient_desc, probes,
+                                             ransac, refine, scale_up)
     from cudasift_tpu_torch.parallel.dryrun import dryrun_multichip
     from cudasift_tpu_torch.pipeline import _compact, _extract_octave
     from cudasift_tpu_torch.utils import jit, native, synth
@@ -232,7 +237,9 @@ def main() -> int:
     # a kernel's time is read against the larger of this and its bound.
     floor_grids = {"one_block": (1, 32), "refine": (5120 // 32, 32), "orient": (5120 // 4, 128),
                    # RANSAC's scoring: 10000 hypotheses, 512 a block, x 32768 / 256 splits.
-                   "ransac_score": (-(-10000 // 512) * (32768 // 256), 128)}
+                   "ransac_score": (-(-10000 // 512) * (32768 // 256), 128),
+                   # The refit: a cluster of 8 blocks of 1024, one weighting.
+                   "lstsq8": (8, 1024)}
     floors = {name: time_ms_graph(probes.launch_floor, dev, *grid)
               for name, grid in floor_grids.items()}
     results = {"probe_launch_floor": dict(
@@ -939,7 +946,8 @@ def main() -> int:
                 require(torch.equal(a, b),
                         f"{label}: {name} differs between the {what} and the eager run")
         require(fit_counts == eager_fit_counts and fit_counts[match.KERNEL.name] == 1
-                and fit_counts[ransac.SCORE_KERNEL.name] == 2,
+                and fit_counts[ransac.SCORE_KERNEL.name] == 2
+                and fit_counts[lstsq.KERNEL.name] == 4,
                 f"{label}: match launches differ, replayed {fit_counts}, eager {eager_fit_counts}")
         if time_fit:
             # Each call timed dispatched from the host and replayed, by CUDA
@@ -1118,6 +1126,58 @@ def main() -> int:
         f"{results['ransac_score']['plain_ms']:.4f} ms, bound "
         f"{results['ransac_score']['bound'][0]:.4f} ms, MSAC max abs err "
         f"{results['ransac_score']['max_abs_err']:.3g}")
+
+    # The weighted refit (csrc/lstsq8.cu) on the four LO refits of the fused
+    # leaves flow's RANSAC (one weighting each), taken from its eager body,
+    # and on the first with its weights stacked three times (IRLS's shape):
+    # ok equal to the plain QR and a at rtol 1e-4 (the same QR; the order of
+    # each sum differs). Bound: each live point's 18 + B floats read once,
+    # and the QR's float32 work on its 2 rows a weighting: 56 projections of
+    # 4 flop, 8 norms of 2 and 8 normalisations and Q^T b products of 3.
+    refits = []
+
+    def recorded_refit(*args):
+        refits.append(args)
+        return lstsq.weighted_lstsq8(*args)
+
+    homography_ops.weighted_lstsq8 = recorded_refit
+    try:
+        with jit.disable_graphs():
+            ct.find_homography(lm, torch.Generator(device=dev).manual_seed(SEED), **hom_kw)
+    finally:
+        homography_ops.weighted_lstsq8 = lstsq.weighted_lstsq8
+    require([r[2].shape[0] for r in refits] == [1] * 4,
+            f"the refit was called with {[r[2].shape[0] for r in refits]} weightings")
+    lo_args = refits[0]
+    three = lo_args[:2] + (lo_args[2].expand(3, -1).contiguous(),) + lo_args[3:]
+    refit_err = 0.0
+    for args in refits + [three]:
+        a, ok = lstsq.weighted_lstsq8(*args)
+        pa, pok = lstsq.weighted_lstsq8_plain(*args)
+        require(torch.equal(ok, pok) and bool(ok.any()),
+                f"refit ok {ok.tolist()} against plain {pok.tolist()}")
+        require(torch.allclose(a, pa, rtol=1e-4, atol=1e-5),
+                f"refit differs from plain by {(a - pa).abs().max()}")
+        refit_err = max(refit_err, float((a - pa).abs().max()))
+    r_live = int(lo_args[5])
+    qr_ops = 2 * r_live * (56 * 4 + 8 * 2 + 8 * 3)
+    results["lstsq8"] = dict(
+        max_abs_err=refit_err, ms=time_ms(lstsq.weighted_lstsq8, *lo_args),
+        graph_ms=time_ms_graph(lstsq.weighted_lstsq8, *lo_args),
+        three_graph_ms=time_ms_graph(lstsq.weighted_lstsq8, *three),
+        plain_ms=time_ms(lstsq.weighted_lstsq8_plain, *lo_args, iters=5, warmup=1),
+        plain_graph_ms=time_ms_graph(lstsq.weighted_lstsq8_plain, *lo_args),
+        three_plain_graph_ms=time_ms_graph(lstsq.weighted_lstsq8_plain, *three),
+        bound=bound(4 * (18 + 1) * r_live, qr_ops),
+        three_bound_ms=bound(4 * (18 + 3) * r_live, 3 * qr_ops)[0],
+        library_ms=None, live=r_live, slots=lo_args[0].shape[0])
+    r = results["lstsq8"]
+    log(f"refit, one weighting x {r_live} live of {r['slots']} points: single "
+        f"{r['ms']:.4f} ms, graph-replayed {r['graph_ms']:.5f} ms (three weightings "
+        f"{r['three_graph_ms']:.5f}), plain {r['plain_ms']:.4f} ms (graph "
+        f"{r['plain_graph_ms']:.4f}, three {r['three_plain_graph_ms']:.4f}), "
+        f"bound {r['bound'][0]:.6f} ms ({r['bound'][1]}; three {r['three_bound_ms']:.6f}), "
+        f"floor {floors['lstsq8']:.5f} ms, max abs err {refit_err:.3g}")
 
     # ScaleUp on the upscale cell's 1280x960 frame: equal to plain bit for
     # bit. Bound: the frame read once and its upsample written once, 20 bytes

@@ -4,8 +4,8 @@ Each wrapper launches its kernel on CUDA tensors and takes the kernel's
 plain PyTorch version on CPU tensors; any other device raises.
 """
 
-from . import (acquire, compact, descriptor, dog, match, orient, orient_desc, probes,
-               ransac, refine, scale_up)
+from . import (acquire, compact, descriptor, dog, lstsq, match, orient, orient_desc,
+               probes, ransac, refine, scale_up)
 
 # The library kernels, K1-K8.
 LIBRARY = (dog.KERNEL, refine.KERNEL, orient_desc.KERNEL, match.KERNEL,
@@ -14,8 +14,9 @@ LIBRARY = (dog.KERNEL, refine.KERNEL, orient_desc.KERNEL, match.KERNEL,
 # (P1) and the eight capability probes (P2).
 KERNELS = LIBRARY + tuple(acquire.KERNELS.values()) + probes.KERNELS
 # The kernels of the homography programs, which stand beside the XLA code of
-# the JAX package and replace no TPU kernel.
-HOMOGRAPHY = (ransac.SCORE_KERNEL,)
+# the JAX package and replace no TPU kernel: RANSAC's scoring and the
+# weighted refit of its LO passes.
+HOMOGRAPHY = (ransac.SCORE_KERNEL, lstsq.KERNEL)
 # The upsample that starts an extraction with SiftParams(scale_up=True),
 # which stands beside the XLA code of the JAX package and replaces no TPU
 # kernel.

@@ -9,7 +9,12 @@ on the card one hand-written kernel, ``ops.cuda.ransac.inlier_counts``),
 and refits the winner on its own inlier set (LO-RANSAC, 4 passes).
 ``improve_homography`` runs iteratively reweighted least squares and picks,
 each iteration, among four supports by MSAC at 0.75*thresh. All refits go
-through the thin-QR solve in ``ops.linalg``.
+through the thin QR of ``ops.linalg``: RANSAC's, on the card, as one
+hand-written kernel over the live matches (``ops.cuda.lstsq``). IRLS's stay
+plain PyTorch on the card too: its MSAC choice between near-equal supports
+and its numFit turn on the float32 rounding of each sum, and the kernel
+sums in another order, so IRLS on it leaves the benchmark reference's
+``irls.num_fit`` by one or two points in some runs.
 
 Each is one program, as the JAX module is one jitted program: on CUDA
 tensors the bodies ``_find_homography_jit`` and ``_improve_homography_jit``
@@ -33,11 +38,13 @@ import torch
 
 from ..config import HomographyParams
 from ..sift_data import SiftData
+from .cuda.lstsq import weighted_lstsq8
 from .cuda.ransac import inlier_counts
 from .detect import rank_select
 from ..utils import trace
 from ..utils.jit import cuda_graph_jit
-from .linalg import solve_batched, weighted_lstsq8
+from . import linalg
+from .linalg import solve_batched
 
 
 def _distinct_quads(u: torch.Tensor, num_valid: torch.Tensor) -> torch.Tensor:
@@ -214,7 +221,8 @@ def _find_homography_jit(pairs: tuple, u: torch.Tensor, gates: tuple):
             py = (h[1, 0] * x1 + h[1, 1] * y1 + h[1, 2]) / den
             err2 = (px - x2) ** 2 + (py - y2) ** 2
             w = (valid_pts & (err2 < thresh * thresh)).to(torch.float32)
-            a, ok = weighted_lstsq8(ya, yb, w[None], s2 * (x2 - cx2), s2 * (y2 - cy2))
+            a, ok = weighted_lstsq8(ya, yb, w[None], s2 * (x2 - cx2), s2 * (y2 - cy2),
+                                    num_pts)
             hr8 = _denormalize(a, t2inv, t1).reshape(9)[:8]
             ok = ok[0] & torch.isfinite(hr8).all()
             refit = torch.where(ok, hr8, refit)
@@ -295,7 +303,7 @@ def _improve_homography_jit(pairs: tuple, homography: torch.Tensor, num_loops: i
             (valid & (err < limit)),
             (valid & (err < 4.0 * limit)),
         ]).to(torch.float32)
-        a, ok = weighted_lstsq8(ya, yb, w, nx2, ny2)
+        a, ok = linalg.weighted_lstsq8(ya, yb, w, nx2, ny2)
         cand = _denormalize(a, t2inv, t1)                    # (3, 3, 3)
         ok = ok & torch.isfinite(cand).flatten(1).all(dim=1)
         m = torch.where(ok, msac(errors(cand)), torch.inf)   # gated, glob, wide

@@ -6,6 +6,8 @@ thread, matching.cu:821-905). ``weighted_lstsq8`` solves the weighted
 8-parameter least-squares refits by thin QR: float32 normal equations
 square the condition number and lose the homography's perspective row
 (the reference survives only through float64 cv::solve, geomFuncs.cpp:55).
+It is the plain twin of the CUDA kernel ``csrc/lstsq8.cu``
+(``ops.cuda.lstsq``), the same QR step for step.
 """
 
 from __future__ import annotations
@@ -41,15 +43,22 @@ def solve_batched(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return aug[..., :, n]
 
 
-def weighted_lstsq8(ya, yb, w, bx, by):
+def weighted_lstsq8(ya, yb, w, bx, by, num_pts=None):
     """Weighted least squares for the 8-parameter DLT rows, by thin QR.
 
     Minimizes ``||sqrt(w) (Y a - b)||`` where Y stacks ``ya`` and ``yb``
     (each (n, 8)) and b stacks ``bx``/``by`` (each (n,)). ``w`` is (B, n):
-    B weightings of the same rows solved together. Modified Gram-Schmidt
-    with one re-orthogonalization pass. Returns (a (B, 8), ok (B,)) where
-    ok requires >= 4 weighted rows and a numerically nonsingular R.
+    B weightings of the same rows solved together. Rows at or past
+    ``num_pts`` (a 0-d tensor; None: every row) are left out. Modified
+    Gram-Schmidt with one re-orthogonalization pass. Returns (a (B, 8),
+    ok (B,)) where ok requires >= 4 weighted rows and a numerically
+    nonsingular R.
     """
+    if num_pts is not None:
+        live = torch.arange(ya.shape[0], device=ya.device) < num_pts
+        ya, yb = (torch.where(live[:, None], y, 0.0) for y in (ya, yb))
+        bx, by = (torch.where(live, y, 0.0) for y in (bx, by))
+        w = torch.where(live, w, 0.0)
     sw = torch.sqrt(w)                                       # (B, n)
     a_mat = torch.cat([ya[None] * sw[..., None], yb[None] * sw[..., None]], dim=1)
     b = torch.cat([sw * bx, sw * by], dim=1)                 # (B, 2n)

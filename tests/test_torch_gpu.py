@@ -1,6 +1,7 @@
 """The CUDA kernels (K1-K8 with K3's three samplers, the patch-acquisition
-kernels P1 and the probes P2, RANSAC's scoring kernel, ScaleUp) against their
-plain versions on the card, the pipeline, fused and split, on the card against
+kernels P1 and the probes P2, RANSAC's scoring kernel, the weighted refit,
+ScaleUp) against their plain versions on the card, the pipeline, fused and
+split, on the card against
 the CPU, the entry points' captured programs (extraction, RANSAC, IRLS)
 against their eager runs, ``utils.trace`` on a replayed program and on the
 profiler's clock, the sharded matcher and extraction and the dry run of
@@ -22,8 +23,9 @@ from cudasift_tpu_torch.config import laplace_kernels
 from cudasift_tpu_torch.ops import convolve, detect
 from cudasift_tpu_torch.ops import match as match_plain
 from cudasift_tpu_torch.ops import orient as orient_plain
-from cudasift_tpu_torch.ops.cuda import (FUSED_PATH, acquire, compact, descriptor, dog, match,
-                                         orient, orient_desc, probes, ransac, refine, scale_up)
+from cudasift_tpu_torch.ops.cuda import (FUSED_PATH, acquire, compact, descriptor, dog, lstsq,
+                                         match, orient, orient_desc, probes, ransac, refine,
+                                         scale_up)
 from cudasift_tpu_torch import pipeline
 from cudasift_tpu_torch.ops.cuda import LIBRARY
 from cudasift_tpu_torch.utils import io, jit, synth, trace
@@ -1011,6 +1013,115 @@ def test_scoring_kernel_in_the_ransac_program(cuda):
         assert all(torch.equal(a, b) for a, b in zip(out, eager)), what
     assert len(homography._find_homography_jit.programs) == 1
     assert int(eager[1]) > 50
+
+
+def refit_inputs(cuda, num_w, max_pts=32768, seed=90):
+    """DLT rows of ``max_pts`` noisy pairs in Hartley scale under a
+    homography, and ``num_w`` weightings in {0, 1} (about 70% of the rows
+    each), float32 on the card."""
+    rng = np.random.default_rng(seed)
+    nx1, ny1 = rng.uniform(-1.5, 1.5, (2, max_pts))
+    hm = np.array([[1.1, 0.05, 0.1], [-0.04, 0.9, -0.2], [0.05, -0.03, 1.0]])
+    q = hm @ np.stack([nx1, ny1, np.ones(max_pts)])
+    nx2, ny2 = q[:2] / q[2] + rng.normal(0, 1e-3, (2, max_pts))
+    one, zero = np.ones(max_pts), np.zeros(max_pts)
+    ya = np.stack([nx1, ny1, one, zero, zero, zero, -nx1 * nx2, -ny1 * nx2], 1)
+    yb = np.stack([zero, zero, zero, nx1, ny1, one, -nx1 * ny2, -ny1 * ny2], 1)
+    w = rng.uniform(size=(num_w, max_pts)) < 0.7
+    return [torch.tensor(np.ascontiguousarray(v), dtype=torch.float32, device=cuda)
+            for v in (ya, yb, w, nx2, ny2)]
+
+
+def assert_refit_kernel_matches_plain(args, num_pts):
+    """The kernel against its plain twin on the same float32 inputs: one
+    counted launch, ``ok`` equal, and ``a`` at the rtol and atol that hold
+    the twin to the JAX package's QR (the same QR; the order of each sum
+    differs); NaN poured into the rows at or past ``num_pts``, with weight 1
+    there, changes no bit."""
+    before = lstsq.KERNEL.launches
+    a, ok = lstsq.weighted_lstsq8(*args, num_pts)
+    ref_a, ref_ok = lstsq.weighted_lstsq8_plain(*args, num_pts)
+    torch.cuda.synchronize()
+    assert lstsq.KERNEL.launches == before + 1
+    assert torch.equal(ok, ref_ok)
+    torch.testing.assert_close(a[ok], ref_a[ok], rtol=1e-4, atol=1e-5)
+    n = int(num_pts)
+    poured = [v.clone() for v in args]
+    for v in poured[:2] + poured[3:]:
+        v[n:] = float("nan")
+    poured[2][:, n:] = 1.0
+    got = lstsq.weighted_lstsq8(*poured, num_pts)
+    assert torch.equal(got[0], a) and torch.equal(got[1], ok)
+    return a, ok
+
+
+# A cluster of 8 blocks of 1024 threads takes 8192 points a sweep.
+@pytest.mark.parametrize("num_w", [1, 3])
+@pytest.mark.parametrize("num_pts", [0, 4, 8191, 8192 + 5, 9000, 32768])
+def test_refit_kernel_matches_plain(cuda, num_w, num_pts):
+    args = refit_inputs(cuda, num_w)
+    a, ok = assert_refit_kernel_matches_plain(
+        args, torch.tensor(num_pts, dtype=torch.int32, device=cuda))
+    if num_pts > 1000:
+        assert bool(ok.all())
+    if num_pts == 0:
+        assert not ok.any()
+
+
+def test_refit_kernel_replays_in_a_graph(cuda):
+    """Captured, the refit is one kernel node and nothing else; two replays
+    give the eager call's bits (no atomics: every sum is taken in a fixed
+    order)."""
+    args = refit_inputs(cuda, 3)
+    num_pts = torch.tensor(9000, dtype=torch.int32, device=cuda)
+    eager = lstsq.weighted_lstsq8(*args, num_pts)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = lstsq.weighted_lstsq8(*args, num_pts)
+        nodes = trace.capture_nodes()
+    assert nodes == {"kernel": 1}, nodes
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], eager[0]) and torch.equal(out[1], eager[1])
+
+
+def test_refit_kernel_in_the_homography_programs(cuda):
+    """A register flow's ``find_homography`` calls the refit kernel 4 times
+    (its four LO refits) and ``improve_homography`` none (IRLS keeps the
+    plain QR), eager, capturing and replayed, with the eager run's bits.
+    RANSAC's program holds fewer than 700 kernel nodes (686 on an H100;
+    about 2,540 with the plain QR, some 460 a refit)."""
+    from cudasift_tpu_torch.ops import homography
+
+    progs = (homography._find_homography_jit, homography._improve_homography_jit)
+    for p in progs:
+        p.clear_cache()
+    da, db, h_true = matched_flow(cuda)
+    m = ct.match_sift_data(da, db)
+    gen = torch.Generator(device=cuda)
+
+    def call():
+        gen.manual_seed(3)
+        before = lstsq.KERNEL.launches
+        h1, nm = ct.find_homography(m, gen, num_loops=2048, min_score=0.0, max_ambiguity=0.9,
+                                    thresh=5.0)
+        torch.cuda.synchronize()
+        mid = lstsq.KERNEL.launches
+        out = (h1, nm) + ct.improve_homography(m, h1, 5, 0.0, 0.9, 3.0)
+        torch.cuda.synchronize()
+        return out, (mid - before, lstsq.KERNEL.launches - mid)
+
+    with jit.disable_graphs():
+        eager, launches = call()
+    assert launches == (4, 0)
+    for what in ("first", "replay", "replay again"):
+        out, launches = call()
+        assert launches == (4, 0), what
+        assert all(torch.equal(a, b) for a, b in zip(out, eager)), what
+    assert synth.corner_error(eager[2].cpu().numpy(), h_true, 240, 320) < 1.0
+    nodes = next(iter(progs[0].programs.values())).nodes["kernel"]
+    assert nodes < 700, nodes
 
 
 def test_sharded_matcher_on_a_repeated_device_mesh(cuda):

@@ -17,7 +17,7 @@ from cudasift_tpu.ops import linalg as jlin
 from cudasift_tpu_torch.convert import sift_data_from_numpy
 from cudasift_tpu_torch.ops import homography as thom
 from cudasift_tpu_torch.ops import linalg as tlin
-from cudasift_tpu_torch.ops.cuda import ransac
+from cudasift_tpu_torch.ops.cuda import lstsq, ransac
 from cudasift_tpu_torch.utils.synth import corner_error, known_homography
 
 H_IMG, W_IMG = 192, 256
@@ -49,6 +49,116 @@ def test_weighted_lstsq8_matches_jax():
         if bool(jok):
             np.testing.assert_allclose(a[i].numpy(), np.asarray(ja), rtol=1e-4, atol=1e-5)
     assert bool(ok[0]) and not bool(ok[1])
+
+
+def dlt_rows(nx1, ny1, nx2, ny2):
+    """The float32 DLT rows (ya, yb) and right-hand sides (bx, by) of the
+    point pairs, as the homography programs build them."""
+    one, zero = np.ones_like(nx1), np.zeros_like(nx1)
+    ya = np.stack([nx1, ny1, one, zero, zero, zero, -nx1 * nx2, -ny1 * nx2], 1)
+    yb = np.stack([zero, zero, zero, nx1, ny1, one, -nx1 * ny2, -ny1 * ny2], 1)
+    return tuple(np.ascontiguousarray(v, np.float32) for v in (ya, yb, nx2, ny2))
+
+
+def refit_case(seed, n, num_w):
+    """Hartley-scale rows of n noisy pairs under a homography and ``num_w``
+    weightings in {0, 1}, about 70% of the rows each."""
+    rng = np.random.default_rng(seed)
+    nx1, ny1 = rng.uniform(-1.5, 1.5, (2, n))
+    hm = np.array([[1.1, 0.05, 0.1], [-0.04, 0.9, -0.2], [0.05, -0.03, 1.0]])
+    q = hm @ np.stack([nx1, ny1, np.ones(n)])
+    nx2, ny2 = q[:2] / q[2] + rng.normal(0, 1e-3, (2, n))
+    w = (rng.uniform(size=(num_w, n)) < 0.7).astype(np.float32)
+    return dlt_rows(nx1, ny1, nx2, ny2), w
+
+
+def lstsq64(ya, yb, w, bx, by):
+    """numpy's float64 least squares of one weighting (w in {0, 1})."""
+    keep = np.concatenate([w, w]) > 0
+    y = np.concatenate([ya, yb]).astype(np.float64)[keep]
+    b = np.concatenate([bx, by]).astype(np.float64)[keep]
+    return np.linalg.lstsq(y, b, rcond=None)[0]
+
+
+@pytest.mark.parametrize("num_w", [1, 3])
+def test_weighted_lstsq8_solves_each_weighting(num_w):
+    """The QR solves each of B weightings as numpy's float64 least squares
+    does, to float32's rounding, and one call of B weightings gives each the
+    bits of a call of its own."""
+    (ya, yb, bx, by), w = refit_case(40, 300, num_w)
+    a, ok = tlin.weighted_lstsq8(*(torch.tensor(v) for v in (ya, yb, w, bx, by)))
+    assert a.dtype == torch.float32 and ok.dtype == torch.bool
+    assert a.shape == (num_w, 8) and ok.shape == (num_w,) and bool(ok.all())
+    for i in range(num_w):
+        np.testing.assert_allclose(a[i].numpy(), lstsq64(ya, yb, w[i], bx, by),
+                                   rtol=1e-5, atol=1e-6)
+        one, one_ok = tlin.weighted_lstsq8(*(torch.tensor(v) for v in (ya, yb, w[i:i + 1],
+                                                                        bx, by)))
+        assert bool(one_ok[0]) and torch.equal(a[i], one[0])
+
+
+@pytest.mark.parametrize("weighted", [0, 1, 2, 3, 4])
+def test_weighted_lstsq8_needs_four_weighted_points(weighted):
+    """Fewer than 4 weighted points: not ok; 4 points (8 rows for 8
+    unknowns) solve."""
+    (ya, yb, bx, by), _ = refit_case(41, 50, 1)
+    w = np.zeros((1, 50), np.float32)
+    w[0, 10:10 + weighted] = 1.0
+    _, ok = tlin.weighted_lstsq8(*(torch.tensor(v) for v in (ya, yb, w, bx, by)))
+    assert bool(ok[0]) == (weighted == 4)
+
+
+@pytest.mark.parametrize("axis", [0, 1])
+def test_weighted_lstsq8_collinear_points_are_not_ok(axis):
+    """Source points on a coordinate axis (the other coordinate exactly 0)
+    leave a column of A exactly 0: its R_jj is 0 and the solve is not ok,
+    in every weighting over them; a weighting of the same call over sound
+    rows is unaffected."""
+    rng = np.random.default_rng(42)
+    nx1, ny1, nx2, ny2 = rng.uniform(-1.5, 1.5, (4, 60)).astype(np.float32)
+    (nx1, ny1)[1 - axis][:40] = 0.0                         # the first 40 on the axis
+    ya, yb, bx, by = dlt_rows(nx1, ny1, nx2, ny2)
+    w = np.zeros((3, 60), np.float32)
+    w[0, :40] = 1.0                                          # collinear
+    w[1, :20] = 1.0                                          # collinear
+    w[2, :] = 1.0                                            # the whole set: solvable
+    a, ok = tlin.weighted_lstsq8(*(torch.tensor(v) for v in (ya, yb, w, bx, by)))
+    assert ok.tolist() == [False, False, True]
+    assert bool(torch.isfinite(a[2]).all())
+
+
+@pytest.mark.parametrize("seed", [43, 44, 45])
+def test_weighted_lstsq8_three_points_repeated(seed):
+    """Three distinct pairs repeated: 6 independent rows for 8 unknowns, and
+    the solve is not ok."""
+    rng = np.random.default_rng(seed)
+    p = rng.uniform(-1.5, 1.5, (3, 4)).astype(np.float32)
+    idx = np.arange(30) % 3
+    ya, yb, bx, by = dlt_rows(*(p[idx, k] for k in range(4)))
+    w = np.ones((1, 30), np.float32)
+    _, ok = tlin.weighted_lstsq8(*(torch.tensor(v) for v in (ya, yb, w, bx, by)))
+    assert not bool(ok[0])
+
+
+@pytest.mark.parametrize("num_pts", [0, 5, 130, 200])
+def test_weighted_lstsq8_rows_past_num_pts_change_nothing(num_pts):
+    """Rows at or past ``num_pts``, NaN with weight 1 there, give the bits of
+    the same rows zeroed with weight 0 and no count; CPU tensors take the
+    plain twin through the kernel's wrapper."""
+    (ya, yb, bx, by), w = refit_case(47, 200, 3)
+    dead = np.arange(200) >= num_pts
+    clean = [v.copy() for v in (ya, yb, w, bx, by)]
+    poured = [v.copy() for v in (ya, yb, w, bx, by)]
+    for i in (0, 1, 3, 4):
+        clean[i][dead] = 0.0
+        poured[i][dead] = np.nan
+    clean[2][:, dead] = 0.0
+    poured[2][:, dead] = 1.0
+    got = lstsq.weighted_lstsq8(*(torch.tensor(v) for v in poured),
+                                torch.tensor(num_pts, dtype=torch.int32))
+    ref = tlin.weighted_lstsq8(*(torch.tensor(v) for v in clean))
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    assert got[1].tolist() == (w[:, :num_pts].sum(axis=1) >= 4).tolist()
 
 
 def matched_points(seed=33, n=300, cap=512):
@@ -108,6 +218,36 @@ def test_find_and_improve_homography_match_jax(monkeypatch):
     live = np.asarray(jerr) < 3.0
     np.testing.assert_allclose(terr.numpy()[live], np.asarray(jerr)[live], atol=0.05)
     assert corner_error(th2.numpy(), hm, H_IMG, W_IMG) < 0.5
+
+
+def test_programs_stay_within_the_benchmarks_limits_of_its_reference():
+    """RANSAC and IRLS of the port against the benchmark's frozen plain
+    reference (``siftbench/reference/homography.py``) on the same matches
+    and draws: on CPU tensors both take the plain QR, the reference's own
+    refit, so every compared number of ``siftbench/limits/1080p-pairs.json``
+    reads 0."""
+    import json
+    from pathlib import Path
+
+    from siftbench import compare
+    from siftbench.reference import homography as ref
+    from siftbench.reference.precision import FLOAT32
+
+    limits = json.loads((Path(__file__).resolve().parents[1] / "siftbench" / "limits"
+                         / "1080p-pairs.json").read_text())["check"]
+    arrays, _ = matched_points(seed=48, n=400)
+    data = sift_data_from_numpy(arrays)
+    u = torch.rand((512, 4), generator=torch.Generator().manual_seed(6))
+    got = thom._find_homography_jit(thom._pairs(data), u,
+                                    thom._gates(0.0, 0.8, 5.0, data.device))
+    want = ref.find_homography(data, u, 0.0, 0.8, 5.0, FLOAT32)
+    numbers = {f"ransac.{k}": v for k, v in compare.ransac(got, want, H_IMG, W_IMG).items()}
+    fit = thom.improve_homography(data, got[0], 5, 0.0, 0.8, 3.0)
+    want_fit = ref.improve_homography(data, got[0], 5, 0.0, 0.8, 3.0, FLOAT32)
+    numbers.update({f"irls.{k}": v for k, v in compare.refinement(
+        fit, want_fit, 400, 3.0, H_IMG, W_IMG).items()})
+    assert sorted(numbers) == sorted(k for k in limits if k.startswith(("ransac.", "irls.")))
+    assert all(v == 0.0 for v in numbers.values()), numbers
 
 
 def test_distinct_quads_match_jax():
