@@ -10,11 +10,13 @@ demo CLI on the card. Marked ``gpu``: they skip without a CUDA device. On the ca
 them with ``python -m pytest tests/test_torch_gpu.py -q --noconftest``: the
 conftest only configures jax, which these tests do not use."""
 
+import dataclasses
 import json
 
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 import cudasift_tpu_torch as ct
 import scoring_cases
@@ -28,7 +30,7 @@ from cudasift_tpu_torch.ops.cuda import (FUSED_PATH, acquire, compact, descripto
                                          scale_up)
 from cudasift_tpu_torch import pipeline
 from cudasift_tpu_torch.ops.cuda import LIBRARY
-from cudasift_tpu_torch.utils import io, jit, synth, trace
+from cudasift_tpu_torch.utils import io, jit, native, synth, trace
 from cudasift_tpu_torch.utils.synth import make_test_image
 
 pytestmark = pytest.mark.gpu
@@ -468,6 +470,9 @@ def test_split_pipeline_on_card_matches_cpu(cuda, use_pallas_compact):
     launched = {k.name: k.launches - c for k, c in counts.items()}
     assert launched["orient"] == launched["descriptor"] == 6 and launched["orient_desc"] == 0
     assert launched["compact"] == (6 if use_pallas_compact else 0)
+    # The compaction kernel on and off give the same SiftData bit for bit.
+    other = dataclasses.replace(params, use_pallas_compact=not use_pallas_compact)
+    assert_sift_equal(ct.extract_sift(torch.as_tensor(img, device=cuda), other), on_gpu, "other")
     on_cpu = ct.extract_sift(img, params, device="cpu")
     n = int(on_cpu.num_pts)
     assert int(on_gpu.num_pts) == n and n > 30
@@ -491,6 +496,9 @@ def test_acquire_kernels_match_plain(cuda):
             ref = acquire.acquire_plain(*args, roll)
             torch.testing.assert_close(got, ref, rtol=1e-5, atol=0, msg=name)
             assert not got[:, 1:].any()
+        bench = acquire.acquire_bench(*args)                     # each variant once
+        for name, staged, roll in acquire.VARIANTS:
+            assert torch.equal(bench[name], acquire.acquire(*args, staged, roll)), name
 
 
 def acquire_case(case, cuda):
@@ -669,21 +677,34 @@ def test_fast_pipeline_on_card_matches_cpu(cuda):
     assert float(row.median()) < 4e-3
 
 
-def test_cli_on_card(cuda, tmp_path, capsys):
-    h, w = 320, 480
+# A small pair, and the benchmark's frame size at thresh 3.0, the defaults
+# otherwise, whose numFit floor is 10% below its first H100 run's 7233.
+@pytest.mark.parametrize("h,w,flags,min_fit", [
+    (320, 480, ["--octaves", "3", "--max-pts", "2048", "--num-loops", "512"], 50),
+    (1080, 1920, ["--thresh", "3.0"], 6500),
+], ids=["small", "1080p"])
+def test_cli_on_card(cuda, tmp_path, capsys, h, w, flags, min_fit):
+    """The demo CLI on the card (its default device) on a dead-leaves pair
+    written as PGM files: the fused path's kernels launch, every JSON key,
+    no overflow, numFit over the floor, the annotated image, the C++ codec."""
     a = synth.make_leaves_image(h, w, seed=0)
     left, right = str(tmp_path / "l.pgm"), str(tmp_path / "r.pgm")
     io.write_pgm(left, a)
     io.write_pgm(right, synth.warp_image(a, synth.known_homography(h, w)))
     out = str(tmp_path / "annotated.pgm")
     before = {k: k.launches for k in FUSED_PATH}
-    assert cli.main(["--left", left, "--right", right, "--octaves", "3", "--max-pts", "2048",
-                     "--num-loops", "512", "--json", "--time", "--out", out]) == 0
+    assert cli.main(["--left", left, "--right", right, *flags, "--json", "--time",
+                     "--out", out]) == 0
     assert all(k.launches > before[k] for k in FUSED_PATH)
     metrics = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert metrics["num_pts1"] > 100 and metrics["overflow1"] == 0 and metrics["num_fit"] > 50
+    assert set(metrics) == {"num_pts1", "num_pts2", "overflow1", "overflow2", "num_fit",
+                            "num_matches", "match_rate_pct", "first_call_ms", "extract_ms",
+                            "match_ms"}
+    assert metrics["num_pts1"] > 100 and metrics["overflow1"] == metrics["overflow2"] == 0
+    assert metrics["num_fit"] > min_fit
     assert metrics["extract_ms"] > 0 and metrics["match_ms"] > 0
     assert io.read_pgm(out).shape == (h, w)
+    assert native.have_native()
 
 
 # ---- The entry points as captured programs (utils.jit) ----------------------
@@ -703,11 +724,26 @@ FLOWS = {
 }
 
 
+def assert_program_holds_its_eager_kernels(graph_jit):
+    """The kernels that torch.profiler records for one call of
+    ``graph_jit``'s body dispatched from the host, on its one program's own
+    inputs, are as many as the kernel nodes of that program's graph: the
+    replay runs every kernel of the eager run (memsets and copies aside)."""
+    (program,) = graph_jit.programs.values()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        graph_jit.fn(*program.static)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and "memcpy" not in e.name.lower() and "memset" not in e.name.lower()]
+    assert len(kernels) == program.nodes["kernel"] > 0, (graph_jit.__name__, program.nodes)
+
+
 @pytest.mark.parametrize("flow", list(FLOWS))
 def test_graph_equals_eager(cuda, flow):
     """The first call (eager, then captured), a replay and a replay on a
     second image of the same shape each equal the eager run of that image
-    field by field, and count the same launches."""
+    field by field, and count the same launches; the program holds the
+    eager run's kernels."""
     pipeline._extract_sift_jit.clear_cache()
     params = ct.SiftParams(num_octaves=3, thresh=2.0, max_pts=2048, **FLOWS[flow])
     imgs = [torch.as_tensor(make_test_image(192, 256, seed=s), device=cuda) for s in (70, 71)]
@@ -728,6 +764,7 @@ def test_graph_equals_eager(cuda, flow):
         assert {k.name: k.launches for k in LIBRARY} == eager_launches, (flow, call)
     assert len(pipeline._extract_sift_jit.programs) == 1
     assert sum(eager_launches.values()) >= 9
+    assert_program_holds_its_eager_kernels(pipeline._extract_sift_jit)
 
 
 def test_graph_programs_per_shape_and_held_results(cuda):
@@ -919,6 +956,100 @@ def test_match_and_homography_programs_equal_eager(cuda):
     assert all(len(p.programs) == 1 for p in progs)
 
 
+def near_tie_gap(a, b, got, ref) -> float:
+    """The largest gap between the float64 scores of two matchers' picks
+    (columns of ``b`` for rows of ``a``) where they differ, else 0."""
+    rows = (got != ref).nonzero()[:, 0]
+    picks = [(a[rows].double() * b[p[rows].long()].double()).sum(dim=1) for p in (got, ref)]
+    return float((picks[0] - picks[1]).abs().max()) if len(rows) else 0.0
+
+
+def assert_split_near_fused(split, fused):
+    """The split path's points against the fused path's with exact
+    descriptors, the JAX package's on-chip bands: key-set overlap >= 0.98,
+    over 100 points at a position of their own, whose orientations agree
+    within 2 deg on >= 95% and whose descriptors' max-abs error has p99
+    < 5e-3."""
+    def fields(d):
+        n = int(d.num_pts)
+        return [getattr(d, f)[:n].cpu().numpy() for f in ("xpos", "ypos", "scale",
+                                                           "orientation", "data")]
+
+    sx, sy, ss, so, sd = fields(split)
+    fx, fy, fs, fo, fd = fields(fused)
+    kf = set(zip(np.round(fx, 2), np.round(fy, 2), np.round(fs, 2)))
+    ks = set(zip(np.round(sx, 2), np.round(sy, 2), np.round(ss, 2)))
+    assert len(kf & ks) / max(len(kf), len(ks)) >= 0.98
+    where = {}
+    for i, key in enumerate(zip(np.round(fx, 2), np.round(fy, 2))):
+        where.setdefault(key, []).append(i)
+    oerr, derr = [], []
+    for i, key in enumerate(zip(np.round(sx, 2), np.round(sy, 2))):
+        js = where.get(key, [])
+        if len(js) == 1:
+            do = abs(float(fo[js[0]]) - float(so[i]))
+            oerr.append(min(do, 360.0 - do))
+            derr.append(float(np.abs(fd[js[0]] - sd[i]).max()))
+    assert len(oerr) > 100
+    assert float((np.asarray(oerr) < 2.0).mean()) >= 0.95
+    assert float(np.percentile(derr, 99)) < 5e-3
+
+
+# The demo flow at the benchmark's 1920x1080 settings: the dead-leaves pair on
+# the fused path with both samplers and on the split path, and the blocks pair
+# on the fused path, whose ratio test passes few matches (about 8).
+@pytest.mark.parametrize("frame,flow", [("leaves", "shift"), ("leaves", "fast"),
+                                        ("leaves", "split_k8"), ("blocks", "shift")])
+def test_demo_flow_on_a_1080p_pair(cuda, frame, flow):
+    """Frame B is frame A warped by a known homography. Both extractions
+    replayed from their program equal the eager run field by field (the
+    kernels give the same bits twice at full size), every field finite;
+    on the pair's 32768-slot sets K4 holds to its plain version (scores at
+    rtol 1e-5 / atol 1e-6, picks equal but at float64 near-ties within
+    1e-6) and the hybrid tier (K5 and its rescore) to K4 (indices equal
+    where K4's best-second gap exceeds 1e-5, scores within 1e-5); RANSAC and
+    IRLS bring the frame corners within 1 px of the truth. The split flow's
+    frame A is also held to the fused path with exact descriptors."""
+    h, w = 1080, 1920
+    a = (synth.make_leaves_image if frame == "leaves" else make_test_image)(h, w, 0)
+    h_true = synth.known_homography(h, w)
+    pair = [torch.as_tensor(f, device=cuda) for f in (a, synth.warp_image(a, h_true))]
+    settings = dict(num_octaves=5, init_blur=1.0, thresh=3.0, max_pts=32768)
+    params = ct.SiftParams(**settings, **FLOWS[flow])
+    pipeline._extract_sift_jit.clear_cache()
+    with jit.disable_graphs():
+        eager = [ct.extract_sift(f, params) for f in pair]
+    for _ in range(2):                                   # eager and captured, then replayed
+        da, db = [ct.extract_sift(f, params) for f in pair]
+    for got, ref in ((da, eager[0]), (db, eager[1])):
+        assert_sift_equal(got, ref, (frame, flow))
+        assert int(got.num_pts) > 1000
+        for name in ("xpos", "ypos", "scale", "orientation", "data"):
+            assert bool(torch.isfinite(getattr(got, name)[:int(got.num_pts)]).all()), name
+    n1 = int(da.num_pts)
+    sets = (da.data, db.data, da.num_pts, db.num_pts)
+    score, amb, index = (t[:n1] for t in match.match_descriptors(*sets))
+    ref_score, _, ref_index = (t[:n1] for t in match_plain.match_descriptors(*sets))
+    torch.testing.assert_close(score, ref_score, rtol=1e-5, atol=1e-6)
+    assert near_tie_gap(da.data, db.data, index, ref_index) <= 1e-6
+    before = match.SWEEP_KERNEL.launches
+    hyb_score, _, hyb_index = (t[:n1] for t in match.match_descriptors(*sets, rescore_k=8))
+    assert match.SWEEP_KERNEL.launches > before
+    decided = (score - amb * (score + 1e-6)) > 1e-5
+    assert torch.equal(hyb_index[decided], index[decided])
+    assert float((hyb_score - score).abs().max()) <= 1e-5
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    m = ct.match_sift_data(da, db)
+    h1, _ = ct.find_homography(m, gen, num_loops=10240, min_score=0.0, max_ambiguity=0.80,
+                               thresh=5.0)
+    h2, _, _ = ct.improve_homography(m, h1, 5, 0.0, 0.80, 3.0)
+    assert synth.corner_error(h2.cpu().numpy(), h_true, h, w) < 1.0
+    if not params.use_fused:
+        assert_split_near_fused(da, ct.extract_sift(pair[0], ct.SiftParams(**settings,
+                                                                           grad_mode="exact")))
+    pipeline._extract_sift_jit.clear_cache()
+
+
 def assert_scoring_kernel_matches_plain(h8, fields, num_pts, thresh):
     """The kernel against its plain version on the card: counts equal, MSAC
     sums to 1e-5 with the same argmin, one launch; NaN poured into the point
@@ -1091,7 +1222,8 @@ def test_refit_kernel_in_the_homography_programs(cuda):
     (its four LO refits) and ``improve_homography`` none (IRLS keeps the
     plain QR), eager, capturing and replayed, with the eager run's bits.
     RANSAC's program holds fewer than 700 kernel nodes (686 on an H100;
-    about 2,540 with the plain QR, some 460 a refit)."""
+    about 2,540 with the plain QR, some 460 a refit), and each program the
+    eager run's kernels."""
     from cudasift_tpu_torch.ops import homography
 
     progs = (homography._find_homography_jit, homography._improve_homography_jit)
@@ -1122,6 +1254,8 @@ def test_refit_kernel_in_the_homography_programs(cuda):
     assert synth.corner_error(eager[2].cpu().numpy(), h_true, 240, 320) < 1.0
     nodes = next(iter(progs[0].programs.values())).nodes["kernel"]
     assert nodes < 700, nodes
+    for p in progs:
+        assert_program_holds_its_eager_kernels(p)
 
 
 def test_sharded_matcher_on_a_repeated_device_mesh(cuda):
@@ -1157,12 +1291,15 @@ def test_sharded_extraction_on_a_repeated_device_mesh(cuda):
         singles = [ct.extract_sift(f, params) for f in frames]
     mesh = parallel.Mesh((cuda,) * 4)
     for fn in (parallel.extract_sift_throughput_sharded, parallel.extract_sift_batched):
-        for _ in range(2):                               # captured, then replayed
-            got = fn(frames, params, mesh)
-        torch.cuda.synchronize()
-        for i, single in enumerate(singles):
-            for name in ct.SiftData.__dataclass_fields__:
-                assert torch.equal(getattr(got, name)[i], getattr(single, name)), (fn, i, name)
+        for on in (mesh, parallel.make_mesh()):          # the card four times; every card
+            fn(frames, params, on)                       # captured
+            before = {k: k.launches for k in FUSED_PATH[:3]}
+            got = fn(frames, params, on)                 # replayed
+            torch.cuda.synchronize()
+            assert all(k.launches - before[k] == 4 * 3 for k in FUSED_PATH[:3]), fn
+            for i, single in enumerate(singles):
+                for name in ct.SiftData.__dataclass_fields__:
+                    assert torch.equal(getattr(got, name)[i], getattr(single, name)), (fn, i, name)
     assert len(parallel.make_mesh().devices) == torch.cuda.device_count()
     with pytest.raises(ValueError, match="not divisible"):
         parallel.extract_sift_throughput_sharded(frames[:3], params, mesh)
@@ -1171,8 +1308,10 @@ def test_sharded_extraction_on_a_repeated_device_mesh(cuda):
 def test_dryrun_on_the_card(cuda):
     from cudasift_tpu_torch.parallel.dryrun import dryrun_multichip
 
+    before = {k: k.launches for k in FUSED_PATH}
     out = dryrun_multichip(4)
     assert len(out["num_pts"]) == 4 and all(d.startswith("cuda") for d in out["devices"])
+    assert all(k.launches > before[k] for k in FUSED_PATH)
 
 
 # ---- ScaleUp ------------------------------------------------------------------
@@ -1326,8 +1465,6 @@ def test_trace_counts_the_off_program_as_captured(cuda):
 def test_host_span_holds_the_profilers_launch_record(cuda):
     """Host spans and the profiler's timeline share a clock: a span around
     a kernel's launch contains the runtime call that launched it."""
-    from torch.profiler import ProfilerActivity, profile
-
     torch.cuda._sleep(10)
     torch.cuda.synchronize()
     trace.enable()

@@ -19,15 +19,15 @@ from cudasift_tpu_torch.ops import convolve
 from cudasift_tpu_torch.ops import cuda
 from cudasift_tpu_torch.ops.cuda import scale_up
 from cudasift_tpu_torch.utils import trace
+from cudasift_tpu_torch.utils.build import Kernel
 from cudasift_tpu_torch.utils.synth import make_test_image
 
 SHAPES = [(1, 1), (1, 6), (2, 1), (5, 7), (6, 8), (31, 33), (96, 128)]
 
 
 def test_the_kernel_stands_apart_from_the_tpu_ports():
-    assert cuda.UPSCALE == (scale_up.KERNEL,)
-    for group in (cuda.LIBRARY, cuda.KERNELS, cuda.HOMOGRAPHY, cuda.FUSED_PATH,
-                  cuda.SPLIT_PATH):
+    assert scale_up.KERNEL in Kernel.instances
+    for group in (cuda.LIBRARY, cuda.KERNELS, cuda.FUSED_PATH, cuda.SPLIT_PATH):
         assert scale_up.KERNEL not in group
     assert scale_up.KERNEL.name == "scale_up" and "-fmad=false" in scale_up.KERNEL.flags
     assert "scale_up" in trace.snapshot()["launches"]
